@@ -8,11 +8,22 @@
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and times kernel, plain version and the
    one-call PyTorch yardstick with CUDA events;
-4. drives the main path at the paper's full width (`paper_config`: 100,000
-   cells, 2^25 slots for each of 3 species): compute chunks, diagnostics,
-   openPMD writes, a particle dump, a device-compressed checkpoint, restore
-   and restart, and checks the results and the kernels' launch counts;
-5. prints one JSON line of per-kernel numbers, then, as the last line,
+4. drives the PIC main path at the paper's full width (`paper_config`:
+   100,000 cells, 2^25 slots for each of 3 species): compute chunks,
+   diagnostics, openPMD writes, a particle dump, a device-compressed
+   checkpoint, restore and restart, and checks the results and the kernels'
+   launch counts;
+5. holds the flash attention and SSD scan kernels against their plain
+   versions at zamba2-2.7b's prefill shapes (and a few others);
+6. drives the serving path: zamba2-2.7b at full width (54 Mamba2 layers,
+   d_model 2560, 2,422,670,240 random params from a seed) through
+   `ServeEngine.generate` (batch 4, prompt 512, 32 new tokens), checks the
+   kernels' launch counts (9 flash, 54 SSD per prefill, none in decode),
+   each kernel against its plain version on the prefill's activations,
+   and, in units of a noise floor, the forward through the kernels
+   against the one through the plain versions and decode against a
+   teacher-forced forward;
+7. prints one JSON line of per-kernel numbers, then, as the last line,
    `{"ok": true, "device": {...}}`.
 
 Any failed check raises and the script exits non-zero without the last
@@ -20,6 +31,7 @@ line. It exits non-zero too when no CUDA device is visible, and when run
 outside a checkout of the repository (it imports `repro_torch` from
 `src/` beside it). It never imports JAX or the JAX package.
 """
+import contextlib
 import json
 import pathlib
 import shutil
@@ -28,19 +40,23 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
-#: NVIDIA H100 SXM data sheet: HBM3 rate and fp32 (non-tensor-core) peak
+#: NVIDIA H100 SXM data sheet: HBM3 rate, fp32 (non-tensor-core) and dense
+#: bf16 tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 #: ops per particle of the deposit: x/dx, floor, frac, w*alive, 1-frac,
 #: two products, two atomic adds
 DEPOSIT_OPS = 9
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -108,14 +124,20 @@ def profile_steps(torch, dev, n_steps: int = 3) -> dict:
             state = sim.pic_step(state, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return {"steps": n_steps, **_profile_rows(prof, wall, n_steps)}
+
+
+def _profile_rows(prof, wall_s, n):
+    """Per-call device ms of the profiled work, its wall ms, the device's
+    idle share of that wall, and the largest kernels by device time."""
     rows = sorted(((ev.key, _device_us(ev, self_only=True), ev.count)
                    for ev in prof.key_averages()), key=lambda r: -r[1])
     rows = [r for r in rows if r[1] > 0]
-    busy = sum(r[1] for r in rows) / 1e3 / n_steps
-    return {"steps": n_steps, "device_ms_per_step": busy,
-            "profiled_wall_ms_per_step": 1e3 * wall / n_steps,
-            "top": [[k[:80], us / 1e3 / n_steps, c / n_steps]
-                    for k, us, c in rows[:12]]}
+    busy = sum(r[1] for r in rows) / 1e3 / n
+    return {"device_ms": busy, "profiled_wall_ms": 1e3 * wall_s / n,
+            "idle_share": 1 - busy / (1e3 * wall_s / n),
+            "launches": sum(r[2] for r in rows) / n,
+            "top": [[k[:80], us / 1e3 / n, c / n] for k, us, c in rows[:12]]}
 
 
 def check_deposit(torch, dev, n: int, n_cells: int) -> dict:
@@ -380,6 +402,410 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
             "ionizations": d1["ionizations"]}
 
 
+def _max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_flash_attention(torch, dev) -> dict:
+    """The kernel against its plain version at the serving shape of
+    zamba2-2.7b's shared block (B=4, S=512, H=32, D=80, bf16, causal), and
+    at D 64/128, non-causal and ragged S; times at the serving shape."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    # bf16 outputs of two fp32 computations that round p and sum in other
+    # orders: one or two bf16 ulps of values up to ~4
+    tol = 3e-2
+    g = torch.Generator(device=dev)
+    g.manual_seed(80)
+
+    def qkv(B, S, H, D):
+        return [torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+                for _ in range(3)]
+
+    errs = {}
+    for B, S, H, D, causal in ((4, 512, 32, 80, True), (2, 512, 8, 64, True),
+                               (2, 512, 8, 128, True), (2, 512, 8, 80, False),
+                               (2, 320, 8, 80, True), (2, 320, 8, 128, False)):
+        q, k, v = qkv(B, S, H, D)
+        got = fops.flash_attention(q, k, v, causal=causal)
+        ref = flash_attention_plain(q, k, v, causal=causal, q_chunk=256,
+                                    kv_chunk=256)
+        torch.cuda.synchronize()
+        errs[(B, S, H, D, causal)] = err = _max_err(got, ref)
+        if not err < tol:
+            raise AssertionError(f"flash B={B} S={S} H={H} D={D} "
+                                 f"causal={causal}: max_abs_err {err}")
+    print("flash_attention max_abs_err vs plain (tol 3e-2): " + ", ".join(
+        f"{k}: {v:.4g}" for k, v in errs.items()))
+
+    B, S, H, D = 4, 512, 32, 80
+    q, k, v = qkv(B, S, H, D)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))    # [B,H,S,D] views
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = S * (S + 1) // 2                 # causal (query, key) pairs
+    b, by = bound_ms(4 * B * S * H * D * 2, 4 * D * pairs * B * H,
+                     BF16_OPS_PER_S)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
+            "max_abs_err": errs[(B, S, H, D, True)],
+            "ms": time_ms(torch, lambda i: fops.flash_attention(q, k, v), 50),
+            "device_ms": device_ms(torch, lambda i: fops.flash_attention(
+                q, k, v), 20, "flash_fwd_kernel"),
+            "plain_ms": time_ms(torch, lambda i: flash_attention_plain(
+                q, k, v, q_chunk=256, kv_chunk=256), 5),
+            "library_ms": time_ms(torch, lambda i: sdpa(qt, kt, vt,
+                                                        is_causal=True), 50),
+            "bound_ms": b, "bound_by": by,
+            "shape": f"B={B} S={S} H={H} D={D} bf16 causal"}
+
+
+def ssd_inputs(torch, dev, b, s, h, p, n, seed):
+    """Inputs shaped and typed as zamba2's prefill gives them to the scan:
+    x, B, C bf16, dt = softplus(.) fp32, A = -exp(linspace(log 1, log 16))
+    (cs reaches about -200 within a chunk), D = 1."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device=dev).bfloat16()
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=g, device=dev) - 1.0)
+    A = -torch.exp(torch.linspace(0.0, 2.772588722, h, device=dev))
+    B = (torch.randn((b, s, n), generator=g, device=dev) * 0.3).bfloat16()
+    C = (torch.randn((b, s, n), generator=g, device=dev) * 0.3).bfloat16()
+    return x, dt, A, B, C, torch.ones((h,), device=dev)
+
+
+def check_ssd_scan(torch, dev) -> dict:
+    """The kernel against the plain `ssd_chunked` (y and final state) at
+    zamba2-2.7b's prefill shape (b=4, s=512, h=80, p=64, n=64, chunk 128),
+    at n=128 and at a padded s; times at the prefill shape."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    errs = {}
+    for b, s, h, p, n in ((4, 512, 80, 64, 64), (2, 512, 16, 64, 128),
+                          (2, 200, 16, 64, 64)):
+        args = ssd_inputs(torch, dev, b, s, h, p, n, s + n)
+        y, final = sops.ssd_scan(*args, chunk=128)
+        yr, fr = plain_scan(*args, chunk=128)
+        torch.cuda.synchronize()
+        ey = _max_err(y, yr)
+        ef = _max_err(final, fr) / max(1.0, float(fr.abs().max()))
+        errs[(b, s, h, p, n)] = (ey, ef)
+        # y: bf16 of fp32 sums in another order; state: fp32, relative
+        if not (ey < 5e-2 and ef < 1e-4):
+            raise AssertionError(f"ssd b={b} s={s} h={h} p={p} n={n}: y "
+                                 f"err {ey}, state rel err {ef}")
+    print("ssd_scan vs plain (y tol 5e-2, state rel tol 1e-4): " + ", ".join(
+        f"{k}: y {v[0]:.4g} state {v[1]:.3g}" for k, v in errs.items()))
+
+    b, s, h, p, n, Q = 4, 512, 80, 64, 64, 128
+    args = ssd_inputs(torch, dev, b, s, h, p, n, 1)
+    nc = s // Q
+    tri = Q * (Q + 1) // 2
+    # C.B once per (batch, chunk), shared by the heads; per head the
+    # decay-masked product and the two state terms
+    ops = b * nc * tri * n * 2 + b * h * nc * (tri * p * 2 + 2 * Q * n * p * 2)
+    nbytes = 2 * (2 * b * s * h * p) + 4 * b * s * h + 2 * 4 * h \
+        + 2 * (2 * b * s * n) + 4 * b * h * p * n
+    bb, by = bound_ms(nbytes, ops)
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:72",
+            "max_abs_err": errs[(b, s, h, p, n)][0],
+            "ms": time_ms(torch, lambda i: sops.ssd_scan(*args), 20),
+            "device_ms": device_ms(torch, lambda i: sops.ssd_scan(*args), 10,
+                                   "ssd_scan_kernel"),
+            "plain_ms": time_ms(torch, lambda i: ssd_chunked(*args), 5),
+            "library_ms": None, "bound_ms": bb, "bound_by": by,
+            "shape": f"b={b} s={s} h={h} p={p} n={n} chunk {Q}"}
+
+
+def plain_flash(q, k, v, *, causal=True, qc=512, kc=512):
+    """The flash wrapper's contract through its plain version."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    return flash_attention_plain(q, k, v, causal=causal, q_chunk=qc,
+                                 kv_chunk=kc)
+
+
+def plain_scan(x, dt, A, B, C, D, *, chunk=128, initial_state=None):
+    """The SSD wrapper's contract (s padded with zeros to whole chunks)
+    through the plain `ssd_chunked`."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    y, final = ssd_chunked(F.pad(x, (0, 0, 0, 0, 0, pad)),
+                           F.pad(dt, (0, 0, 0, pad)), A,
+                           F.pad(B, (0, 0, 0, pad)), F.pad(C, (0, 0, 0, pad)),
+                           D, chunk=chunk, initial_state=initial_state)
+    return y[:, :s], final
+
+
+@contextlib.contextmanager
+def routed(flash, scan):
+    """Send the model's calls of the flash and SSD wrappers to `flash` and
+    `scan` (same signatures) for the duration. Only the model modules'
+    references to the two ops modules are swapped: the wrappers, their
+    kernels and their launch counts stay as they are."""
+    from repro_torch.models import attention, ssm
+    saved = attention.flash_ops, ssm.ssd_ops
+    attention.flash_ops = types.SimpleNamespace(flash_attention=flash)
+    ssm.ssd_ops = types.SimpleNamespace(ssd_scan=scan)
+    try:
+        yield
+    finally:
+        attention.flash_ops, ssm.ssd_ops = saved
+
+
+class FirstAndLast:
+    """Calls `fn` and keeps the arguments and result of its first and its
+    last call."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, {}
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        self.calls.setdefault("first", (args, kw, out))
+        self.calls["last"] = (args, kw, out)
+        return out
+
+
+def check_on_activations(torch, flash_calls, scan_calls) -> dict:
+    """What each kernel gave the prefill against its plain version on the
+    same inputs, the activations of the model: the first and the last call
+    of each. The limits are those of the kernel checks (flash 3e-2, SSD y
+    5e-2, SSD state relative 1e-4), set there for values up to ~4; above
+    that an absolute limit grows with the reference's largest value, as a
+    bf16 ulp does."""
+    out = {}
+    for which, (args, kw, got) in flash_calls.items():
+        ref = plain_flash(*args, **kw)
+        top = float(ref.float().abs().max())
+        err = _max_err(got, ref)
+        out[f"flash_attention/{which}"] = {"max_abs_err": err,
+                                           "max_abs": top}
+        if not err < 3e-2 * max(1.0, top / 4):
+            raise AssertionError(f"flash on the prefill's {which} call: "
+                                 f"max_abs_err {err} (max |out| {top})")
+    for which, (args, kw, (y, final)) in scan_calls.items():
+        yr, fr = plain_scan(*args, **kw)
+        top = float(yr.float().abs().max())
+        ey = _max_err(y, yr)
+        ef = _max_err(final, fr) / max(1.0, float(fr.abs().max()))
+        out[f"ssd_scan/{which}"] = {"y_max_abs_err": ey, "max_abs_y": top,
+                                    "state_rel_err": ef}
+        if not (ey < 5e-2 * max(1.0, top / 4) and ef < 1e-4):
+            raise AssertionError(f"ssd on the prefill's {which} call: y err "
+                                 f"{ey} (max |y| {top}), state rel err {ef}")
+    torch.cuda.synchronize()
+    return out
+
+
+def run_serve_path(torch, dev, cfg=None, *, batch=4, prompt=512, new=32,
+                   max_seq=1024) -> dict:
+    """`cfg`, a hybrid config (default: zamba2-2.7b at full width), served
+    through `ServeEngine.generate`: the launch counts of the kernels are
+    zeroed just before it and read just after. Then prefill and each decode
+    step are timed apart, with the counts read between them; each kernel's
+    outputs in that prefill are held against its plain version; and the
+    decode logits are held against one teacher-forced forward through the
+    kernels, that forward against one through the plain versions, and both
+    gaps against the noise floor: two forwards through the plain versions
+    that differ only in their chunking. Returns timings, counts and the
+    checks' numbers."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = cfg or get_config("zamba2-2.7b")
+    if cfg.family != "hybrid":
+        raise ValueError(f"run_serve_path serves a hybrid config, not "
+                         f"{cfg.name} ({cfg.family})")
+    kernels = {"flash_attention": fops.flash_attention,
+               "ssd_scan": sops.ssd_scan}
+    # per prefill: the shared block after every `shared_attn_interval`
+    # Mamba2 layers, and every Mamba2 layer
+    expect = {"flash_attention": cfg.n_layers // cfg.shared_attn_interval,
+              "ssd_scan": cfg.n_layers}
+
+    def counts():
+        return {k: f.launches for k, f in kernels.items()}
+
+    def zero():
+        for f in kernels.values():
+            f.launches = 0
+
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device=dev)
+    n_params = sum(t.numel() for t in M.leaves(params))
+    if n_params != cfg.n_params():
+        raise AssertionError(f"{n_params} params, expected {cfg.n_params()}")
+    eng = ServeEngine(cfg, params, ServeConfig(max_batch=batch,
+                                               max_seq=max_seq,
+                                               max_new_tokens=new))
+    del params                    # the engine keeps what it reads
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    eng.generate(prompts, new_tokens=2)   # cuBLAS handles and workspaces
+
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, new_tokens=new)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = counts()
+    if launches != expect:
+        raise AssertionError(f"serve launches {launches} != {expect}")
+    if gen.shape != (batch, new) or not ((gen >= 0) &
+                                         (gen < cfg.padded_vocab)).all():
+        raise AssertionError(f"generated tokens out of range: {gen.shape}")
+
+    # prefill and decode apart, their launches, the kernels on the
+    # prefill's activations, and the teacher-forced check
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+        flash_rec = FirstAndLast(fops.flash_attention)
+        scan_rec = FirstAndLast(sops.ssd_scan)
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with routed(flash_rec, scan_rec):
+            logits, cache = eng.prefill(eng.params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = counts()
+        activations = check_on_activations(torch, flash_rec.calls,
+                                           scan_rec.calls)
+        del flash_rec, scan_rec
+        cache = eng._grow_cache(cache)
+        steps = [logits[:, -1]]
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(new - 1):
+            tok = torch.as_tensor(gen[:, t:t + 1], dtype=torch.int64,
+                                  device=dev)
+            logits, cache = M.decode_step(eng.params, cfg, tok, cache,
+                                          prompt + t)
+            steps.append(logits[:, -1])
+        torch.cuda.synchronize()
+        decode_ms = 1e3 * (time.perf_counter() - t0) / max(new - 1, 1)
+        decode_launches = counts()
+        dec = torch.stack(steps, 1)
+        seq = torch.as_tensor(np.concatenate([prompts, gen[:, :-1]], 1),
+                              dtype=torch.int64, device=dev)
+
+        def forward(q_chunk, kv_chunk, ssd_chunk):
+            out, _ = M.forward(eng.params, cfg, {"tokens": seq},
+                               q_chunk=q_chunk, kv_chunk=kv_chunk,
+                               ssd_chunk=ssd_chunk)
+            return out[:, prompt - 1:]
+
+        # the chunks only matter to the plain versions: 3 x 181 or 1 x 543
+        # positions for flash, 128 or 64 for the scan
+        full = forward(256, 256, 128)
+        with routed(plain_flash, plain_scan):
+            plain = forward(256, 256, 128)
+            plain_b = forward(1024, 1024, 64)
+    if prefill_launches != expect or any(decode_launches.values()):
+        raise AssertionError(f"launches: prefill {prefill_launches}, "
+                             f"decode {decode_launches}")
+    if not torch.equal(dec.argmax(-1).cpu(), torch.as_tensor(gen).long()):
+        raise AssertionError("decode logits do not give the generated tokens")
+    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+        raise AssertionError("non-finite logits")
+    top = float(full.abs().max())
+    # the noise floor: the plain versions' own summation order, carried
+    # through every layer
+    floor = float((plain - plain_b).abs().max())
+    # the kernels' rounding, carried through every layer
+    kdiff = float((full - plain).abs().max())
+    # decode (recurrent Mamba2 step with a bf16 state, softmax over the
+    # cache) and the forward (chunked scan, flash) round at other points
+    diff = float((dec - full).abs().max())
+    # the limits in units of the floor (or of a hundredth of the largest
+    # logit, where a small model rounds alike both ways): the kernels may
+    # move the logits half as much again as the plain versions' own order
+    # does, decode twice as much, for its bf16 state
+    unit = max(floor, 0.01 * top)
+    if not (kdiff <= 1.5 * unit and diff <= 2 * unit):
+        raise AssertionError(f"logits differ: decode vs forward {diff}, "
+                             f"kernels vs plain {kdiff}, noise floor "
+                             f"{floor} (max |logit| {top})")
+
+    def margin(logits, gap):
+        top2 = logits.topk(2, dim=-1).values
+        return ((top2[..., 0] - top2[..., 1]) > 2 * gap).cpu().numpy()
+
+    clear = margin(full, diff)
+    same = full.argmax(-1).cpu().numpy() == gen
+    if not same[clear].all():
+        raise AssertionError("a decoded token differs from the forward's "
+                             "where the margin is clear")
+    kclear = margin(plain, kdiff)
+    ksame = (full.argmax(-1) == plain.argmax(-1)).cpu().numpy()
+    if not ksame[kclear].all():
+        raise AssertionError("a token of the forward through the kernels "
+                             "differs from the plain one where the margin "
+                             "is clear")
+    profile = profile_serve(torch, eng, cfg, tokens, gen)
+    return {"arch": cfg.name, "n_params": n_params, "init_s": init_s,
+            "generate_s": generate_s, "prefill_s": prefill_s,
+            "prompt_tokens_per_s": batch * prompt / prefill_s,
+            "decode_ms_per_step": decode_ms, "launches": launches,
+            "prefill_launches": prefill_launches,
+            "decode_launches": decode_launches,
+            "kernels_on_activations": activations,
+            "teacher_forcing": {"max_abs_diff": diff, "max_abs_logit": top,
+                                "kernels_vs_plain_max_abs_diff": kdiff,
+                                "noise_floor_max_abs_diff": floor,
+                                "clear_share": float(clear.mean()),
+                                "equal_share": float(same.mean()),
+                                "kernels_clear_share": float(kclear.mean()),
+                                "kernels_equal_share": float(ksame.mean())},
+            "profile": profile,
+            "shape": f"batch {batch}, prompt {prompt}, {new} new tokens, "
+                     f"max_seq {max_seq}"}
+
+
+def profile_serve(torch, eng, cfg, tokens, gen, n_decode: int = 4) -> dict:
+    """Where the serving path's device time goes: device time by kernel
+    (device activity only) over one prefill, and over `n_decode` decode
+    steps, each against its profiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    Sp = tokens.shape[1]
+    out = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, cache = eng.prefill(eng.params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["prefill"] = _profile_rows(prof, wall, 1)
+        cache = eng._grow_cache(cache)
+        toks = [torch.as_tensor(gen[:, t:t + 1], dtype=torch.int64,
+                                device=tokens.device) for t in range(n_decode)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in range(n_decode):
+                M.decode_step(eng.params, cfg, toks[t], cache, Sp + t)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["decode_step"] = _profile_rows(prof, wall, n_decode)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -389,6 +815,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitshuffle import ops as bops
     from repro_torch.kernels.deposit import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -397,7 +825,8 @@ def main() -> int:
     print(smi)
     dev = torch.device("cuda:0")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
+          f"device {torch.cuda.get_device_name(0)}; fp32 matmul allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} (left at its default)")
 
     build_s = _build.build_all()
     print(f"kernel build: {build_s:.2f} s")
@@ -419,7 +848,9 @@ def main() -> int:
     counters = {"deposit_cic": dops.deposit,
                 "byte_shuffle_block": bops.shuffle_block,
                 "byte_shuffle": bops.shuffle,
-                "byte_unshuffle": bops.unshuffle}
+                "byte_unshuffle": bops.unshuffle,
+                "flash_attention": fops.flash_attention,
+                "ssd_scan": sops.ssd_scan}
     for fn in counters.values():
         fn.launches = 0
     workdir = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-"))
@@ -448,9 +879,37 @@ def main() -> int:
           f"{res['counts_start']} -> {res['counts_end']}")
     print(f"launches on the main path: {launches}")
     print(json.dumps({"step_profile": profile_steps(torch, dev)}))
-    on_path = {"deposit_cic", "byte_shuffle_block"}
+    torch.cuda.empty_cache()
+
+    # the serving path: zamba2-2.7b at full width
+    t0 = time.perf_counter()
+    lm_kernels = [check_flash_attention(torch, dev), check_ssd_scan(torch, dev)]
+    for k in lm_kernels:
+        lib = "-" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        print(f"  {k['name']}: {k['ms']:.4f} ms (device {k['device_ms']}, "
+              f"plain {k['plain_ms']:.4f}, yardstick {lib}, "
+              f"bound {k['bound_ms']:.4f} by {k['bound_by']}) at {k['shape']}")
+    kernels += lm_kernels
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    serve = run_serve_path(torch, dev)
+    serve_launches = serve["launches"]      # generate()'s, zeroed before it
+    serve["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    serve["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"serve": serve}))
+    print(f"serve path ({serve['arch']}, {serve['n_params']} params): "
+          f"prefill {serve['prefill_s']:.3f} s "
+          f"({serve['prompt_tokens_per_s']:.0f} prompt tokens/s), decode "
+          f"{serve['decode_ms_per_step']:.2f} ms/step, peak "
+          f"{serve['peak_memory_gib']:.2f} GiB, teacher forcing "
+          f"{serve['teacher_forcing']}")
+
+    on_path = {"deposit_cic": launches, "byte_shuffle_block": launches,
+               "flash_attention": serve_launches, "ssd_scan": serve_launches}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = on_path.get(k["name"], launches)[k["name"]]
         k["on_path"] = k["name"] in on_path
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,16 @@
+"""qwen3-4b — qk_norm, GQA kv=8, explicit head_dim=128. [hf:Qwen/Qwen3-8B]"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="qwen3-4b",
+    family="dense",
+    n_layers=36,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=9728,
+    vocab_size=151936,
+    head_dim=128,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+))

@@ -1,0 +1,55 @@
+"""Serving launcher: random params (seed 0) and batched greedy generation
+through `ServeEngine`, on the CUDA device unless `--device cpu`.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --batch 4 --prompt-len 512 --new-tokens 32 --max-seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --smoke --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import get_config, reduce_for_smoke
+from repro_torch.models import model as M
+from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--max-seq", type=int, default=256)
+    args = ap.parse_args(argv)
+
+    if args.ckpt_dir:
+        raise NotImplementedError(
+            "--ckpt-dir needs ckpt/manager.py, which is not ported yet "
+            "(ROADMAP.md Queue 1, item 3)")
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduce_for_smoke(cfg)
+    params = M.init_params(cfg, 0, device=dev)
+    eng = ServeEngine(cfg, params, ServeConfig(max_batch=args.batch,
+                                               max_seq=args.max_seq,
+                                               max_new_tokens=args.new_tokens))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+    toks = eng.generate(prompts, new_tokens=args.new_tokens)
+    for i, row in enumerate(toks.tolist()):
+        print(f"req{i}: {row}")
+    return toks
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,117 @@
+"""Shared neural-net building blocks (plain functions on tensors), the port
+of the JAX package's `models/layers.py`.
+
+Params are nested dicts of tensors. Compute is bf16 with fp32 accumulation;
+master params keep their configured dtype. Every `.to(COMPUTE_DTYPE)` below
+stands where the JAX code has an `.astype(COMPUTE_DTYPE)`, so bf16 rounds at
+the same points in both packages. JAX einsums with
+`preferred_element_type=float32` on bf16 inputs are fp32 products of the
+bf16 values here (exact: a product of two bf16 fits in fp32), and fp32
+matrix products run in full fp32 (`torch.backends.cuda.matmul.allow_tf32`
+is left at its default, False).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+# --------------------------------------------------------------------- init
+def normal(gen: torch.Generator | None, shape, *, device,
+           dtype=torch.float32) -> torch.Tensor:
+    """Standard normal draws from `gen` (no draw on the meta device, where
+    only shapes exist)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device).to(dtype)
+
+
+def _dense_init(gen, shape, *, device, fan_in=None, dtype=torch.float32):
+    fan_in = fan_in if fan_in is not None else shape[0]
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    return (normal(gen, shape, device=device) * scale).to(dtype)
+
+
+def init_linear(gen, d_in, d_out, *, device, bias=False, dtype=torch.float32):
+    p = {"w": _dense_init(gen, (d_in, d_out), device=device, fan_in=d_in,
+                          dtype=dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def linear(p, x):
+    """bf16 projection: fp32 accumulation inside the product, bf16 in and
+    out (`layers.py:28-37` of the JAX package)."""
+    y = torch.matmul(x.to(COMPUTE_DTYPE), p["w"].to(COMPUTE_DTYPE))
+    if "b" in p:
+        y = y + p["b"].to(COMPUTE_DTYPE)
+    return y
+
+
+# ----------------------------------------------------------------- rmsnorm
+def init_rmsnorm(d, *, device, dtype=torch.float32):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rms_norm(p, x, eps=1e-5):
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(COMPUTE_DTYPE)
+
+
+# -------------------------------------------------------------------- rope
+def rope_freqs(head_dim: int, theta: float, device=None):
+    """Inverse frequencies for rotary embeddings; [head_dim // 2]."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., S, H, D]; positions: [..., S] int."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)                         # [D/2]
+    ang = positions[..., :, None, None].float() * inv            # [...,S,1,D/2]
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(COMPUTE_DTYPE)
+
+
+# ------------------------------------------------------------------ swiglu
+def init_swiglu(gen, d_model, d_ff, *, device, dtype=torch.float32):
+    return {
+        "gate": init_linear(gen, d_model, d_ff, device=device, dtype=dtype),
+        "up": init_linear(gen, d_model, d_ff, device=device, dtype=dtype),
+        "down": init_linear(gen, d_ff, d_model, device=device, dtype=dtype),
+    }
+
+
+def swiglu(p, x):
+    g = linear(p["gate"], x)
+    u = linear(p["up"], x)
+    return linear(p["down"], F.silu(g.float()).to(COMPUTE_DTYPE) * u)
+
+
+# -------------------------------------------------------------- embeddings
+def init_embedding(gen, vocab, d_model, *, device, dtype=torch.float32):
+    return {"table": (normal(gen, (vocab, d_model), device=device)
+                      * 0.02).to(dtype)}
+
+
+def embed(p, ids):
+    return p["table"].to(COMPUTE_DTYPE)[ids]
+
+
+def unembed(p, x):
+    """Hidden states -> fp32 logits: the fp32 product of the bf16 values
+    (JAX: bf16 einsum with `preferred_element_type=float32`)."""
+    t = p["table"].to(COMPUTE_DTYPE)
+    return torch.matmul(x.float(), t.float().t())

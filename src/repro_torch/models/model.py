@@ -1,0 +1,134 @@
+"""Top-level LM: embeddings -> family stack -> final norm -> logits. The
+port of the JAX package's `models/model.py`, inference only:
+    init_params(cfg, seed, device=...)              -> params (nested dicts)
+    forward(params, cfg, batch, ...)                -> (logits, aux)
+    prefill(params, cfg, batch, ...)                -> (logits, cache)
+    decode_step(params, cfg, token, cache, length)  -> (logits, cache)
+    make_decode_cache_spec / init_decode_cache
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.models.layers import (embed, init_embedding, init_rmsnorm,
+                                       rms_norm, unembed)
+from repro_torch.models.transformer import stack_for
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(cfg):
+    return _DTYPES[cfg.param_dtype]
+
+
+# ------------------------------------------------------------------- init
+def _init(cfg, gen, device):
+    dtype = _dtype(cfg)
+    stack = stack_for(cfg)
+    p = {
+        "embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                device=device, dtype=dtype),
+        "stack": stack.init(gen, cfg, device=device, dtype=dtype),
+        "final_norm": init_rmsnorm(cfg.d_model, device=device, dtype=dtype),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                      device=device, dtype=dtype)
+    return p
+
+
+def init_params(cfg, seed: int = 0, *, device=None):
+    """Random params with the JAX package's distributions (normal draws
+    scaled by 1/sqrt(fan_in), embeddings by 0.02, norms at 1, the Mamba2
+    constants), drawn from a `torch.Generator` on `device` (CUDA unless
+    `device="cpu"`). The draws differ from JAX's: tests carry JAX's params
+    across with `convert.params_from_numpy`."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return _init(cfg, gen, dev)
+
+
+def leaves(tree):
+    """The tensors of a nested dict / list / tuple, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in leaves(v)]
+    return [tree]
+
+
+def param_shapes(cfg):
+    """The params of `init_params` on the meta device: shapes and dtypes,
+    no storage (so a 480B config costs nothing)."""
+    return _init(cfg, None, torch.device("meta"))
+
+
+def count_params_analytic(cfg) -> int:
+    """Parameter count by shape arithmetic."""
+    return sum(math.prod(t.shape) for t in leaves(param_shapes(cfg)))
+
+
+# ---------------------------------------------------------------- forward
+def _embed_inputs(params, cfg, batch):
+    x = embed(params["embed"], batch["tokens"])
+    B, S = x.shape[0], x.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device)[None].expand(B, S)
+    return x, positions
+
+
+def _head(params, cfg):
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward(params, cfg, batch, *, with_cache=False, q_chunk=1024,
+            kv_chunk=1024, ssd_chunk=128):
+    """batch: {tokens, positions?}. Causal full-sequence pass;
+    logits are fp32 [B,S,V]."""
+    x, positions = _embed_inputs(params, cfg, batch)
+    x, aux, cache = stack_for(cfg).seq(
+        params["stack"], x, cfg, positions=positions, with_cache=with_cache,
+        q_chunk=q_chunk, kv_chunk=kv_chunk, ssd_chunk=ssd_chunk)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(_head(params, cfg), x)
+    return (logits, aux, cache) if with_cache else (logits, aux)
+
+
+def prefill(params, cfg, batch, **kw):
+    logits, _, cache = forward(params, cfg, batch, with_cache=True, **kw)
+    return logits, cache
+
+
+def decode_step(params, cfg, token, cache, cache_len: int):
+    """One-token decode. token:[B,1] int; cache_len an int. Updates `cache`
+    in place and returns (logits [B,1,V], cache)."""
+    x = embed(params["embed"], token)
+    x, cache = stack_for(cfg).step(params["stack"], x, cache, cache_len, cfg)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(_head(params, cfg), x), cache
+
+
+def make_decode_cache_spec(cfg, B, S):
+    return stack_for(cfg).cache_spec(cfg, B, S)
+
+
+def _map_spec(fn, spec):
+    if isinstance(spec, dict):
+        return {k: _map_spec(fn, v) for k, v in spec.items()}
+    if isinstance(spec, tuple):
+        return tuple(_map_spec(fn, v) for v in spec)
+    return fn(spec)
+
+
+def init_decode_cache(cfg, B, S, *, device=None):
+    """A zeroed decode cache of capacity S, on `device` (CUDA unless
+    `device="cpu"`)."""
+    dev = resolve_device(device)
+    return _map_spec(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+                     make_decode_cache_spec(cfg, B, S))

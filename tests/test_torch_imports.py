@@ -42,6 +42,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     assert "repro_torch.pic.simulation" in res["modules"]
     assert "repro_torch.ckpt.checkpoint" in res["modules"]
     assert "repro_torch.core.compression" in res["modules"]
+    for name in ("configs.base", "models.model", "models.convert",
+                 "kernels.flash_attention.ops", "kernels.ssd_scan.ops",
+                 "serve.engine", "launch.serve"):
+        assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
 
@@ -65,7 +69,11 @@ def test_banned_import_pattern_catches_what_it_should():
 
 def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
     from repro_torch._device import resolve_device
+    from repro_torch.configs.base import get_config, reduce_for_smoke
     from repro_torch.examples import pic_simulation
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_from_numpy
     from repro_torch.pic.convert import state_from_numpy, state_to_numpy
     from repro_torch.pic.simulation import PicConfig, init_sim
 
@@ -87,3 +95,20 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
         state_from_numpy(flat)
     assert state_from_numpy(flat, "cpu").ions.v.shape == (64, 3)
     assert resolve_device("cpu") == torch.device("cpu")
+
+    lm = reduce_for_smoke(get_config("zamba2-2.7b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.init_params(lm, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "zamba2-2.7b", "--smoke"])
+    params = M.init_params(lm, 0, device="cpu")
+    tree = {k: {n: t.numpy() for n, t in v.items()} for k, v in params.items()
+            if k != "stack"}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy(lm, tree)
+    assert params_from_numpy(lm, tree, device="cpu")["embed"][
+        "table"].device.type == "cpu"
+    toks = serve.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu",
+                       "--batch", "1", "--prompt-len", "8",
+                       "--new-tokens", "2", "--max-seq", "16"])
+    assert toks.shape == (1, 2)
