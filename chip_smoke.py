@@ -7,12 +7,13 @@
 2. builds the CUDA kernels from `src/repro_torch/csrc/` with nvcc;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and times kernel, plain version and the
-   one-call PyTorch yardstick with CUDA events;
+   one-call PyTorch yardstick with CUDA events, and kernel and yardstick
+   on the device alone with torch.profiler;
 4. drives the PIC main path at the paper's full width (`paper_config`:
    100,000 cells, 2^25 slots for each of 3 species): compute chunks,
    diagnostics, openPMD writes, a particle dump, a device-compressed
    checkpoint, restore and restart, and checks the results and the kernels'
-   launch counts;
+   launch counts (the checkpoint's shuffle: one launch a shuffled leaf);
 5. holds the flash attention and SSD scan kernels against their plain
    versions at zamba2-2.7b's prefill shapes (and a few others);
 6. drives the serving path: zamba2-2.7b at full width (54 Mamba2 layers,
@@ -107,6 +108,21 @@ def device_ms(torch, fn, iters: int, kernel: str):
     return total / 1e3 / count if count and total else None
 
 
+def library_device_ms(torch, fn, iters: int):
+    """Mean device time of one call of `fn`, a PyTorch yardstick, over
+    `iters` calls: every kernel, copy and fill it launches, from
+    torch.profiler; None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    total = sum(_device_us(ev, self_only=True) for ev in prof.key_averages())
+    return total / 1e3 / iters if total else None
+
+
 def profile_steps(torch, dev, n_steps: int = 3) -> dict:
     """Where one PIC step's device time goes at paper width: device time
     by kernel over `n_steps` steps (device activity only, so no time is
@@ -177,9 +193,11 @@ def check_deposit(torch, dev, n: int, n_cells: int) -> dict:
     ms = time_ms(torch, lambda i: dops.deposit(x, w, alive, n_cells=n_cells,
                                                dx=dx), 20)
     plain = time_ms(torch, lambda i: deposit_ref(x, w, alive, n_cells, dx), 5)
-    lib = time_ms(torch, lambda i: (
-        torch.bincount(i0c, weights=w0, minlength=n_cells),
-        torch.bincount(i1c, weights=w1, minlength=n_cells)), 5)
+    def bincounts(i):
+        return (torch.bincount(i0c, weights=w0, minlength=n_cells),
+                torch.bincount(i1c, weights=w1, minlength=n_cells))
+    lib = time_ms(torch, bincounts, 5)
+    lib_dev = library_device_ms(torch, bincounts, 5)
     dms = device_ms(torch, lambda i: dops.deposit(x, w, alive,
                                                   n_cells=n_cells, dx=dx),
                     10, "deposit_cic_kernel")
@@ -189,14 +207,17 @@ def check_deposit(torch, dev, n: int, n_cells: int) -> dict:
             "replaces": "src/repro/kernels/deposit/kernel.py:48",
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain,
             "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "library_device_ms": lib_dev,
             "shape": f"N={n}, n_cells={n_cells}"}
 
 
-def check_bitshuffle(torch, dev, block: int, itemsize: int) -> list[dict]:
+def check_bitshuffle(torch, dev, block: int, itemsize: int,
+                     leaf_blocks: int = 128) -> list[dict]:
     from repro_torch.core.compression import byte_shuffle
     from repro_torch.kernels.bitshuffle import ops as bops
     from repro_torch.kernels.bitshuffle.ref import (byte_shuffle_ref,
-                                                    byte_unshuffle_ref)
+                                                    byte_unshuffle_ref,
+                                                    shuffle_blocks_ref)
     g = torch.Generator(device=dev)
     g.manual_seed(99)
     for isz in (2, 4, 8):
@@ -217,12 +238,26 @@ def check_bitshuffle(torch, dev, block: int, itemsize: int) -> list[dict]:
             back = bops.unshuffle(out, n, itemsize=isz)
             if not torch.equal(back, raw):
                 raise AssertionError(f"unshuffle {isz} {n_items}")
+            # the leaf form: blocks of 4096 items (all whole, or a ragged
+            # last one) and of 1 MiB (a leaf shorter than one block), and
+            # a start that is not 16-byte aligned (the scalar path)
+            for blk, data in ((4096 * isz, raw), (block, raw),
+                              (4096 * isz, raw[1:])):
+                got = bops.shuffle_blocks(data, block=blk, itemsize=isz)
+                host = data.cpu().numpy().tobytes()
+                oracle = b"".join(byte_shuffle(host[i:i + blk], isz)
+                                  for i in range(0, len(host), blk))
+                if got.cpu().numpy().tobytes() != oracle or not torch.equal(
+                        got, shuffle_blocks_ref(data, block=blk,
+                                                itemsize=isz)):
+                    raise AssertionError(f"shuffle_blocks {isz} {n_items} "
+                                         f"block {blk} len {data.numel()}")
     torch.cuda.synchronize()
-    print("bitshuffle: shuffle_block, shuffle, unshuffle bit-exact for "
-          "itemsize 2/4/8, n_items 1/7/65521/262144")
+    print("bitshuffle: shuffle_block, shuffle, unshuffle, shuffle_blocks "
+          "bit-exact for itemsize 2/4/8, n_items 1/7/65521/262144")
 
-    # timing at the write path's shape: one 1 MiB codec block of float32,
-    # each call on a different block of a 256 MiB buffer (cold in L2)
+    # timing of one 1 MiB codec block of float32 a call, each call on a
+    # different block of a 256 MiB buffer (cold in L2)
     n_blocks = 256
     big = torch.randint(0, 256, (n_blocks * block,), generator=g,
                         device=dev, dtype=torch.uint8)
@@ -233,43 +268,75 @@ def check_bitshuffle(torch, dev, block: int, itemsize: int) -> list[dict]:
     common = {"route": "cuda", "source": "src/repro_torch/csrc/bitshuffle.cu",
               "max_abs_err": 0.0, "bound_ms": b, "bound_by": by,
               "shape": f"{block} B, itemsize {itemsize}"}
-    lib = time_ms(torch, lambda i: blocks[i % n_blocks].view(-1, itemsize)
-                  .t().contiguous(), n_blocks)
-    lib_un = time_ms(torch, lambda i: shuffled[i % n_blocks]
-                     .view(itemsize, -1).t().contiguous(), n_blocks)
-    def dev_ms(fn, kernel):
-        return device_ms(torch, fn, n_blocks, kernel)
 
-    return [
+    def lib(i):
+        return blocks[i % n_blocks].view(-1, itemsize).t().contiguous()
+
+    def lib_un(i):
+        return shuffled[i % n_blocks].view(itemsize, -1).t().contiguous()
+
+    def dev_ms(fn):
+        return device_ms(torch, fn, n_blocks, "shuffle_kernel")
+
+    def timed(fn, plain, yardstick):
+        return {"ms": time_ms(torch, fn, n_blocks), "device_ms": dev_ms(fn),
+                "plain_ms": time_ms(torch, plain, n_blocks),
+                "library_ms": time_ms(torch, yardstick, n_blocks),
+                "library_device_ms": library_device_ms(torch, yardstick,
+                                                       n_blocks)}
+
+    rows = [
         {**common, "name": "byte_shuffle_block",
-         "device_ms": dev_ms(lambda i: bops.shuffle_block(
-             blocks[i % n_blocks], itemsize=itemsize), "transpose_short_cols"),
          "replaces": "src/repro/kernels/bitshuffle/kernel.py:55",
-         "ms": time_ms(torch, lambda i: bops.shuffle_block(
-             blocks[i % n_blocks], itemsize=itemsize), n_blocks),
-         "plain_ms": time_ms(torch, lambda i: byte_shuffle_ref(
-             blocks[i % n_blocks], itemsize=itemsize), n_blocks),
-         "library_ms": lib},
+         **timed(lambda i: bops.shuffle_block(blocks[i % n_blocks],
+                                              itemsize=itemsize),
+                 lambda i: byte_shuffle_ref(blocks[i % n_blocks],
+                                            itemsize=itemsize), lib)},
         {**common, "name": "byte_shuffle",
-         "device_ms": dev_ms(lambda i: bops.shuffle(
-             blocks[i % n_blocks], itemsize=itemsize), "transpose_short_cols"),
          "replaces": "src/repro/kernels/bitshuffle/kernel.py:36",
-         "ms": time_ms(torch, lambda i: bops.shuffle(
-             blocks[i % n_blocks], itemsize=itemsize), n_blocks),
-         "plain_ms": time_ms(torch, lambda i: byte_shuffle_ref(
-             blocks[i % n_blocks], itemsize=itemsize), n_blocks),
-         "library_ms": lib},
+         **timed(lambda i: bops.shuffle(blocks[i % n_blocks],
+                                        itemsize=itemsize),
+                 lambda i: byte_shuffle_ref(blocks[i % n_blocks],
+                                            itemsize=itemsize), lib)},
         {**common, "name": "byte_unshuffle",
-         "device_ms": dev_ms(lambda i: bops.unshuffle(
-             shuffled[i % n_blocks], block, itemsize=itemsize),
-             "transpose_short_rows"),
          "replaces": "src/repro/kernels/bitshuffle/kernel.py:74",
-         "ms": time_ms(torch, lambda i: bops.unshuffle(
-             shuffled[i % n_blocks], block, itemsize=itemsize), n_blocks),
-         "plain_ms": time_ms(torch, lambda i: byte_unshuffle_ref(
-             shuffled[i % n_blocks], itemsize=itemsize), n_blocks),
-         "library_ms": lib_un},
+         **timed(lambda i: bops.unshuffle(shuffled[i % n_blocks], block,
+                                          itemsize=itemsize),
+                 lambda i: byte_unshuffle_ref(shuffled[i % n_blocks],
+                                              itemsize=itemsize), lib_un)},
     ]
+    del big, blocks, shuffled
+
+    # the write path's shape now: one launch for a whole leaf of
+    # `leaf_blocks` codec blocks (128 MiB, a paper-width species' x leaf)
+    leaf = torch.randint(0, 256, (leaf_blocks * block,), generator=g,
+                         device=dev, dtype=torch.uint8)
+    got = bops.shuffle_blocks(leaf, block=block, itemsize=itemsize)
+    if not torch.equal(got, shuffle_blocks_ref(leaf, block=block,
+                                               itemsize=itemsize)):
+        raise AssertionError("shuffle_blocks vs plain on the leaf")
+    del got
+
+    def blocks_kernel(i):
+        return bops.shuffle_blocks(leaf, block=block, itemsize=itemsize)
+
+    def leaf_lib(i):
+        return leaf.view(leaf_blocks, -1, itemsize).transpose(1, 2) \
+            .contiguous()
+
+    b, by = bound_ms(2 * leaf.numel(), 0)
+    rows.append({
+        **common, "name": "byte_shuffle_blocks",
+        "replaces": "src/repro/kernels/bitshuffle/kernel.py:55",
+        "bound_ms": b, "bound_by": by,
+        "shape": f"{leaf_blocks} x {block} B leaf, itemsize {itemsize}",
+        "ms": time_ms(torch, blocks_kernel, 20),
+        "device_ms": device_ms(torch, blocks_kernel, 20, "shuffle_kernel"),
+        "plain_ms": time_ms(torch, lambda i: shuffle_blocks_ref(
+            leaf, block=block, itemsize=itemsize), 20),
+        "library_ms": time_ms(torch, leaf_lib, 20),
+        "library_device_ms": library_device_ms(torch, leaf_lib, 20)})
+    return rows
 
 
 def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
@@ -338,6 +405,15 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
 
     ckpt_dir = workdir / "ckpt"
     saved = state._asdict()
+    # the leaves the checkpoint shuffles on the device, one launch each:
+    # tensors of rank >= 1, not bfloat16 (`save_checkpoint`), with items
+    # of more than one byte and at least one block (`compression`); at
+    # paper_config 13: x, v, w, alive of the 3 species and the RNG key
+    shuffled_leaves = sum(
+        1 for a in flatten_state(saved).values()
+        if isinstance(a, torch.Tensor) and a.ndim > 0
+        and a.dtype != torch.bfloat16 and a.element_size() > 1
+        and a.numel() > 0)
     before = MONITOR.report()["total"].get(CTR.COMPRESS_DEVICE_BYTES, 0.0)
     timed("checkpoint_s", lambda: save_checkpoint(
         ckpt_dir, saved, int(state.step), n_io_ranks=n_io_ranks,
@@ -397,6 +473,7 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
                              f"{expect_bytes}")
     return {"timings_s": t, "steps": steps, "diag_calls": diag_calls,
             "device_bytes": dev_bytes, "restored_from": at,
+            "shuffled_leaves": shuffled_leaves,
             "counts_start": {k: d0[k] for k in d0 if k.startswith("count/")},
             "counts_end": {k: d1[k] for k in d1 if k.startswith("count/")},
             "ionizations": d1["ionizations"]}
@@ -442,6 +519,9 @@ def check_flash_attention(torch, dev) -> dict:
     q, k, v = qkv(B, S, H, D)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))    # [B,H,S,D] views
     sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def yardstick(i):
+        return sdpa(qt, kt, vt, is_causal=True)
     pairs = S * (S + 1) // 2                 # causal (query, key) pairs
     b, by = bound_ms(4 * B * S * H * D * 2, 4 * D * pairs * B * H,
                      BF16_OPS_PER_S)
@@ -451,11 +531,11 @@ def check_flash_attention(torch, dev) -> dict:
             "max_abs_err": errs[(B, S, H, D, True)],
             "ms": time_ms(torch, lambda i: fops.flash_attention(q, k, v), 50),
             "device_ms": device_ms(torch, lambda i: fops.flash_attention(
-                q, k, v), 20, "flash_fwd_kernel"),
+                q, k, v), 20, "flash_fwd_mma"),
             "plain_ms": time_ms(torch, lambda i: flash_attention_plain(
                 q, k, v, q_chunk=256, kv_chunk=256), 5),
-            "library_ms": time_ms(torch, lambda i: sdpa(qt, kt, vt,
-                                                        is_causal=True), 50),
+            "library_ms": time_ms(torch, yardstick, 50),
+            "library_device_ms": library_device_ms(torch, yardstick, 20),
             "bound_ms": b, "bound_by": by,
             "shape": f"B={B} S={S} H={H} D={D} bf16 causal"}
 
@@ -516,7 +596,8 @@ def check_ssd_scan(torch, dev) -> dict:
             "device_ms": device_ms(torch, lambda i: sops.ssd_scan(*args), 10,
                                    "ssd_scan_kernel"),
             "plain_ms": time_ms(torch, lambda i: ssd_chunked(*args), 5),
-            "library_ms": None, "bound_ms": bb, "bound_by": by,
+            "library_ms": None, "library_device_ms": None,
+            "bound_ms": bb, "bound_by": by,
             "shape": f"b={b} s={s} h={h} p={p} n={n} chunk {Q}"}
 
 
@@ -806,6 +887,14 @@ def profile_serve(torch, eng, cfg, tokens, gen, n_decode: int = 4) -> dict:
     return out
 
 
+def print_kernel(k: dict):
+    lib = ("-" if k["library_ms"] is None else
+           f"{k['library_ms']:.4f} (device {k['library_device_ms']})")
+    print(f"  {k['name']}: {k['ms']:.4f} ms (device {k['device_ms']}, "
+          f"plain {k['plain_ms']:.4f}, yardstick {lib}, "
+          f"bound {k['bound_ms']:.5f} by {k['bound_by']}) at {k['shape']}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -840,12 +929,10 @@ def main() -> int:
     kernels = [check_deposit(torch, dev, 1 << 25, 100_000)]
     kernels += check_bitshuffle(torch, dev, 1 << 20, 4)
     for k in kernels:
-        print(f"  {k['name']}: {k['ms']:.4f} ms (device {k['device_ms']}, "
-              f"plain {k['plain_ms']:.4f}, "
-              f"yardstick {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} "
-              f"by {k['bound_by']}) at {k['shape']}")
+        print_kernel(k)
 
     counters = {"deposit_cic": dops.deposit,
+                "byte_shuffle_blocks": bops.shuffle_blocks,
                 "byte_shuffle_block": bops.shuffle_block,
                 "byte_shuffle": bops.shuffle,
                 "byte_unshuffle": bops.unshuffle,
@@ -864,9 +951,14 @@ def main() -> int:
     if launches["deposit_cic"] != expect_dep:
         raise AssertionError(f"deposit launches {launches['deposit_cic']} "
                              f"!= {expect_dep}")
-    if launches["byte_shuffle_block"] != 2305:
-        raise AssertionError(f"shuffle_block launches "
-                             f"{launches['byte_shuffle_block']} != 2305")
+    # one launch a shuffled leaf, none of the one-block wrapper
+    if (launches["byte_shuffle_blocks"] != res["shuffled_leaves"]
+            or launches["byte_shuffle_block"] != 0):
+        raise AssertionError(f"shuffle launches: shuffle_blocks "
+                             f"{launches['byte_shuffle_blocks']} != "
+                             f"{res['shuffled_leaves']} leaves, "
+                             f"shuffle_block {launches['byte_shuffle_block']}"
+                             f" != 0")
     t = res["timings_s"]
     compute_steps = res["steps"]
     ms_step = 1e3 * (t["compute_s"] + t["restart_compute_s"]) / compute_steps
@@ -885,10 +977,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_kernels = [check_flash_attention(torch, dev), check_ssd_scan(torch, dev)]
     for k in lm_kernels:
-        lib = "-" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
-        print(f"  {k['name']}: {k['ms']:.4f} ms (device {k['device_ms']}, "
-              f"plain {k['plain_ms']:.4f}, yardstick {lib}, "
-              f"bound {k['bound_ms']:.4f} by {k['bound_by']}) at {k['shape']}")
+        print_kernel(k)
     kernels += lm_kernels
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -906,11 +995,13 @@ def main() -> int:
           f"{serve['peak_memory_gib']:.2f} GiB, teacher forcing "
           f"{serve['teacher_forcing']}")
 
-    on_path = {"deposit_cic": launches, "byte_shuffle_block": launches,
+    on_path = {"deposit_cic": launches, "byte_shuffle_blocks": launches,
                "flash_attention": serve_launches, "ssd_scan": serve_launches}
     for k in kernels:
         k["launches"] = on_path.get(k["name"], launches)[k["name"]]
         k["on_path"] = k["name"] in on_path
+        k["bound_share"] = (k["bound_ms"] / k["device_ms"]
+                            if k["device_ms"] else None)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

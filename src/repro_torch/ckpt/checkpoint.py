@@ -120,9 +120,10 @@ def save_checkpoint(directory, state, step: int, *, n_io_ranks: int = 8,
 
     `device_compress=True` (with the blosc codec) hands every tensor leaf
     of rank >= 1 to the engine as it is: it is byte-shuffled on its device
-    (the bitshuffle kernel for a CUDA tensor), one launch per 1 MiB codec
-    block, and only the LZ stage runs on the host. 0-d leaves, Python
-    scalars and bfloat16 (raw uint16 storage) keep the host path."""
+    (the bitshuffle kernel for a CUDA tensor), one launch a leaf for all
+    its 1 MiB codec blocks, and only the LZ stage runs on the host. 0-d
+    leaves, Python scalars and bfloat16 (raw uint16 storage) keep the host
+    path."""
     if parallel_io:
         raise NotImplementedError(
             "parallel_io=W needs the multi-process write plane "

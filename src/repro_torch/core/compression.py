@@ -499,33 +499,35 @@ def _device_minmax(t: torch.Tensor):
 
 
 def _device_shuffled_blocks(t: torch.Tensor, block: int, itemsize: int):
-    """Submit the per-codec-block shuffles and start each block's D2H copy
-    into one pinned buffer, recording an event per block — the device
-    queue runs ahead of the host. Returns (host uint8 buffer,
-    blocks=[(lo, hi, event | None, was_shuffled)], device_bytes, minmax)."""
+    """Shuffle the leaf's codec blocks on its device in one launch, then
+    start each block's D2H copy into one pinned buffer, recording an event
+    per block — the device queue runs ahead of the host. Returns (host
+    uint8 buffer, blocks=[(lo, hi, event | None, was_shuffled)],
+    device_bytes, minmax)."""
     from repro_torch.kernels.bitshuffle import ops as bops
     byts = _device_byte_view(t)
     nbytes = int(byts.shape[0])
     minmax = _device_minmax(t)
     on_cuda = byts.is_cuda
     host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=on_cuda)
+    spans = [(i, min(i + block, nbytes))
+             for i in range(0, max(nbytes, 1), block)]
+    # mirror the host byte_shuffle no-op cases exactly so payloads are
+    # bit-compatible: itemsize 1 or a non-multiple block pass through
+    # (shuffle_blocks copies such a block unchanged)
+    shuf = [itemsize > 1 and hi > lo and (hi - lo) % itemsize == 0
+            for lo, hi in spans]
+    if any(shuf):
+        byts = bops.shuffle_blocks(byts, block=block, itemsize=itemsize)
     blocks = []
-    device_bytes = 0
-    for i in range(0, max(nbytes, 1), block):
-        s = byts[i:i + block]
-        blen = int(s.shape[0])
-        # mirror the host byte_shuffle no-op cases exactly so payloads are
-        # bit-compatible: itemsize 1 or a non-multiple tail pass through
-        shuf = itemsize > 1 and blen > 0 and blen % itemsize == 0
-        if shuf:
-            s = bops.shuffle_block(s, itemsize=itemsize)
-            device_bytes += blen
-        host[i:i + blen].copy_(s, non_blocking=on_cuda)
+    for (lo, hi), was_shuffled in zip(spans, shuf):
+        host[lo:hi].copy_(byts[lo:hi], non_blocking=on_cuda)
         ev = None
-        if on_cuda:             # block k's D2H overlaps block k+1's work
+        if on_cuda:             # block k's D2H overlaps block k+1's LZ
             ev = torch.cuda.Event()
             ev.record()
-        blocks.append((i, i + blen, ev, shuf))
+        blocks.append((lo, hi, ev, was_shuffled))
+    device_bytes = sum(hi - lo for (lo, hi), was in zip(spans, shuf) if was)
     return host.numpy(), blocks, device_bytes, minmax
 
 
@@ -578,10 +580,10 @@ def device_array_payload(t: torch.Tensor, codec: str,
                          block: int = DEFAULT_BLOCK
                          ) -> tuple[bytes, DeviceStats]:
     """Full on-device encode pipeline (the thread-pool engine's path):
-    per codec block, shuffle on the device and start the D2H copy, then
-    run the host Z_RLE stage on block k once its event has fired while
-    block k+1 is still in flight — double-buffered overlap. Returns
-    (payload, DeviceStats).
+    shuffle every codec block on the device in one launch and start each
+    block's D2H copy, then run the host Z_RLE stage on block k once its
+    event has fired while block k+1 is still in flight — double-buffered
+    overlap. Returns (payload, DeviceStats).
 
     Codecs whose preconditioner cannot run on-device (lossy quantization,
     zlib/bzip2 ablations, plain "none") materialize the tensor once and

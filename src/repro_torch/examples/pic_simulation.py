@@ -9,7 +9,7 @@ layer, with checkpoint/restart. Runs on the CUDA device by default.
         --scale 1024 --steps 20 --mvstep 10 --dmpstep 10
 
 `--device-compress` writes the checkpoints with the blosc codec and the
-byte shuffle on the device (one bitshuffle launch per 1 MiB codec block).
+byte shuffle on the device (one bitshuffle launch a leaf).
 """
 import argparse
 import pathlib

@@ -10,6 +10,7 @@ there is no fall back to the plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -96,6 +97,9 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built on first use.
     `signatures` maps each C entry point to its ctypes argument types;
     every entry point returns a CUDA error code (int)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -115,9 +119,19 @@ def check(rc: int, what: str):
         raise RuntimeError(f"{what} failed: CUDA error {rc}")
 
 
+def on_device(t: torch.Tensor):
+    """A context that makes `t`'s device the current one for a launch; a
+    no-op when it already is."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
 def stream_of(t: torch.Tensor) -> int:
-    """The raw handle of PyTorch's current stream on `t`'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on `t`'s device. Read
+    without building a `torch.cuda.Stream` (`current_stream()`), which
+    costs a few microseconds of host time a launch."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor, dtype: torch.dtype):

@@ -57,7 +57,7 @@ def flash_attention(q, k, v, *, causal: bool = True, qc: int = 512,
     if Skv == 0:
         raise ValueError("flash_attention: empty key sequence")
     lib = _build.load("flash_attention", _SIGNATURES)
-    with torch.cuda.device(q.device):
+    with _build.on_device(q):
         rc = lib.jbp_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],

@@ -90,10 +90,13 @@ def attention_block(p, x, *, cfg, positions, q_chunk=1024, kv_chunk=1024):
     version's chunks (the CPU path); the kernel tiles by itself."""
     q, k, v = _project_qkv(p, x, cfg, positions)
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    G = H // Hkv
-    kv_map = torch.clamp(torch.arange(H, device=x.device) // G, max=Hkv - 1)
-    k_exp = k.index_select(2, kv_map)
-    v_exp = v.index_select(2, kv_map)
+    if H == Hkv:        # no grouping: the expansion would copy k and v
+        k_exp, v_exp = k, v
+    else:
+        kv_map = torch.clamp(torch.arange(H, device=x.device) // (H // Hkv),
+                             max=Hkv - 1)
+        k_exp = k.index_select(2, kv_map)
+        v_exp = v.index_select(2, kv_map)
     o = flash_ops.flash_attention(q, k_exp, v_exp, causal=True, qc=q_chunk,
                                   kc=kv_chunk)
     y = _out_proj(p["wo"], o)

@@ -66,6 +66,33 @@ def test_shuffle_kernels_are_bit_exact(cuda_device, itemsize, n_items):
     assert torch.equal(bops.unshuffle(out, n, itemsize=itemsize), t)
 
 
+# a leaf shorter than one block, an exact multiple, a ragged last block,
+# a last block that is not a multiple of the item size, blocks that are
+# not (999), and the write path's 1 MiB blocks with a ragged tail
+@pytest.mark.parametrize("itemsize", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("n_bytes,block", [
+    (1000, 4096), (3 * 4096, 4096), (3 * 4096 + 1000, 4096),
+    (3 * 4096 + 6, 4096), (10_000, 999), (3 * (1 << 20) + 8 * 77, 1 << 20)])
+def test_shuffle_blocks_kernel_is_bit_exact(cuda_device, itemsize, n_bytes,
+                                            block):
+    rng = np.random.default_rng(itemsize * 31 + n_bytes)
+    raw = rng.integers(0, 256, n_bytes, dtype=np.uint8)
+    t = torch.from_numpy(raw).to(cuda_device)
+    before = bops.shuffle_blocks.launches
+    got = bops.shuffle_blocks(t, block=block, itemsize=itemsize)
+    assert bops.shuffle_blocks.launches == before + 1
+    host = b"".join(byte_shuffle(raw[i:i + block].tobytes(), itemsize)
+                    for i in range(0, n_bytes, block))
+    assert got.cpu().numpy().tobytes() == host
+    plain = bops.shuffle_blocks(t.cpu(), block=block, itemsize=itemsize)
+    assert torch.equal(got.cpu(), plain)
+    # a start that is not 16-byte aligned takes the kernel's scalar path
+    odd = bops.shuffle_blocks(t[1:], block=block, itemsize=itemsize)
+    assert odd.cpu().numpy().tobytes() == b"".join(
+        byte_shuffle(raw[1:][i:i + block].tobytes(), itemsize)
+        for i in range(0, n_bytes - 1, block))
+
+
 # bf16 outputs of two fp32 computations that round p and sum in other
 # orders: one or two bf16 ulps of values up to ~4 (tests/test_kernels.py
 # holds the TPU kernel to the same 3e-2 in bf16)
@@ -91,6 +118,38 @@ def test_flash_kernel_matches_plain_version(cuda_device, D, causal, S):
     assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, D)
     assert float((got.float() - plain.float()).abs().max()) < FLASH_TOL
     assert float((got.float() - ref.float()).abs().max()) < FLASH_TOL
+
+
+def _flash_against_plain(dev, B, Sq, Skv, H, D, causal, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q = torch.randn((B, Sq, H, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, Skv, H, D), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    got = fops.flash_attention(q, k, v, causal=causal)
+    plain = flash_attention_plain(q, k, v, causal=causal, q_chunk=512,
+                                  kv_chunk=512)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, D)
+    assert torch.isfinite(got.float()).all()
+    return float((got.float() - plain.float()).abs().max())
+
+
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("S", [1, 65, 200, 512])
+def test_flash_kernel_at_one_ragged_and_full_tiles(cuda_device, D, S):
+    assert _flash_against_plain(cuda_device, 2, S, S, 3, D, True,
+                                D + S) < FLASH_TOL
+
+
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("Sq,Skv,causal", [(100, 300, False),
+                                           (300, 70, False),
+                                           (130, 260, True)])
+def test_flash_kernel_with_other_key_lengths(cuda_device, D, Sq, Skv,
+                                             causal):
+    assert _flash_against_plain(cuda_device, 2, Sq, Skv, 3, D, causal,
+                                D + Sq + Skv) < FLASH_TOL
 
 
 def test_flash_kernel_reads_strided_inputs_and_rejects_others(cuda_device):

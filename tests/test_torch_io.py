@@ -146,6 +146,73 @@ def test_device_codec_float64_round_trips_like_host():
         assert ts.device_bytes == (len(raw) if block % 8 == 0 else 0)
 
 
+def _payload_block_by_block(arr, block):
+    """The device codec block by block: `shuffle_block` on each codec
+    block whose length is a multiple of the item size, each block then
+    encoded as pre-shuffled; the one-launch path must match it byte for
+    byte."""
+    from repro_torch.kernels.bitshuffle import ops as bops
+    raw, isz = arr.tobytes(), arr.dtype.itemsize
+    chunk, payload = [], []
+    for i in range(0, max(len(raw), 1), block):
+        b = np.frombuffer(raw[i:i + block], np.uint8)
+        shuf = isz > 1 and len(b) > 0 and len(b) % isz == 0
+        if shuf:
+            b = bops.shuffle_block(torch.from_numpy(b.copy()),
+                                   itemsize=isz).numpy()
+        chunk.append(b.tobytes())
+        payload.append(C._compress_block(b.tobytes(), "blosc", isz,
+                                         preshuffled=shuf))
+    return b"".join(payload), b"".join(chunk)
+
+
+# smooth (compressible) and random (stored raw, the pre-shuffled flag
+# kept) data; one item, a leaf shorter than a block, an exact multiple, a
+# ragged last block, a last block not a multiple of the item size, and
+# blocks that are not (999, 1001)
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.float32,
+                                   np.float64])
+@pytest.mark.parametrize("n,block", [(1, 4096), (300, 4096), (2048, 4096),
+                                     (3000, 4096), (3001, 999),
+                                     (2500, 1001)])
+def test_device_codec_payload_is_what_block_by_block_gave(dtype, n, block):
+    rng = np.random.default_rng(n + block)
+    for arr in ((np.linspace(0, 50, n) * 7).astype(dtype),
+                rng.integers(0, 120, n).astype(dtype)):
+        expect_payload, expect_chunk = _payload_block_by_block(arr, block)
+        payload, stats = C.device_array_payload(torch.from_numpy(arr),
+                                                "blosc", block)
+        assert payload == expect_payload
+        chunk = C.device_precondition(torch.from_numpy(arr), block=block)
+        assert chunk.data.tobytes() == expect_chunk
+        assert chunk.device_bytes == stats.device_bytes
+        np.testing.assert_array_equal(
+            C.payload_to_array(payload, arr.dtype, arr.shape), arr)
+
+
+def test_device_codec_shuffles_a_leaf_in_one_call(monkeypatch):
+    from repro_torch.kernels.bitshuffle import ops as bops
+    calls = []
+
+    def counting(data, *, block, itemsize):
+        calls.append((int(data.shape[0]), block, itemsize))
+        return bops.shuffle_blocks_ref(data, block=block, itemsize=itemsize)
+
+    def forbidden(*a, **kw):
+        raise AssertionError("the write path shuffles per leaf, not per "
+                             "block")
+
+    monkeypatch.setattr(bops, "shuffle_blocks", counting)
+    monkeypatch.setattr(bops, "shuffle_block", forbidden)
+    arr = np.arange(10_000, dtype=np.float32)
+    payload, stats = C.device_array_payload(torch.from_numpy(arr), "blosc",
+                                            4096)
+    assert calls == [(40_000, 4096, 4)] and stats.device_bytes == 40_000
+    assert payload == JC.array_payload(arr, "blosc", 4096)
+    C.device_precondition(torch.from_numpy(arr.view(np.uint8)), block=4096)
+    assert len(calls) == 1          # itemsize 1: nothing to shuffle
+
+
 def test_device_minmax_ignores_nan_like_jax():
     arr = np.array([np.nan, 3.0, -2.0, np.inf, np.nan], np.float32)
     _, ts = C.device_array_payload(torch.from_numpy(arr), "blosc")

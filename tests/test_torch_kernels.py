@@ -97,6 +97,36 @@ def test_cpu_tensors_never_count_as_launches():
             bops.shuffle_block.launches, bops.unshuffle.launches) == before
 
 
+# a leaf shorter than one block, an exact multiple, a ragged last block, a
+# last block that is not a multiple of the item size, and blocks that are
+# not (999): such a block passes through, as the write path leaves it
+@pytest.mark.parametrize("itemsize", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_bytes,block", [
+    (1000, 4096), (3 * 4096, 4096), (3 * 4096 + 1000, 4096),
+    (3 * 4096 + 6, 4096), (10_000, 999)])
+def test_shuffle_blocks_matches_jax_per_block_and_host(itemsize, n_bytes,
+                                                       block):
+    rng = np.random.default_rng(itemsize * 1000 + n_bytes + block)
+    raw = rng.integers(0, 256, n_bytes, dtype=np.uint8)
+    before = bops.shuffle_blocks.launches
+    got = bops.shuffle_blocks(torch.from_numpy(raw), block=block,
+                              itemsize=itemsize).numpy()
+    assert bops.shuffle_blocks.launches == before       # CPU: plain version
+    host = b"".join(byte_shuffle(raw[i:i + block].tobytes(), itemsize)
+                    for i in range(0, n_bytes, block))
+    assert got.tobytes() == host
+    jax = [np.asarray(jbops.shuffle_block(jnp.asarray(s), itemsize=itemsize))
+           if len(s) % itemsize == 0 else s
+           for s in (raw[i:i + block] for i in range(0, n_bytes, block))]
+    np.testing.assert_array_equal(got, np.concatenate(jax))
+
+
+def test_shuffle_blocks_rejects_a_bad_block():
+    with pytest.raises(ValueError, match="block > 0"):
+        bops.shuffle_blocks(torch.zeros(8, dtype=torch.uint8), block=0,
+                            itemsize=4)
+
+
 # ------------------------------------------------------------------- deposit
 def _particles(n, seed, dead=0.25):
     rng = np.random.default_rng(seed)

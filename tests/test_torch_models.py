@@ -9,6 +9,8 @@ each comparison; "ulps" are bf16 ulps of the largest value compared
 (2^-7 of it), since both packages round to bf16 at the same points and
 differ only where an fp32 sum taken in another order rounds the other way.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -92,9 +94,9 @@ def test_layers_match_jax():
 
 
 # ------------------------------------------------------------------- blocks
-def _smoke(name):
-    jcfg = jreduce(jget_config(name))
-    cfg = reduce_for_smoke(get_config(name))
+def _smoke(name, **over):
+    jcfg = dataclasses.replace(jreduce(jget_config(name)), **over)
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(name)), **over)
     # jitted: fp32 draws only, and both packages take the same arrays
     jp = jax.jit(JM.init_params, static_argnums=0)(jcfg,
                                                    jax.random.PRNGKey(0))
@@ -105,7 +107,17 @@ def _smoke(name):
 
 @pytest.mark.parametrize("name", ["qwen3-4b", "qwen1.5-0.5b"])
 def test_attention_blocks_match_jax(name):
-    jcfg, cfg, jp, tp = _smoke(name)
+    _attention_block_matches_jax(name)
+
+
+def test_grouped_attention_block_matches_jax():
+    # every smoke config keeps 4 query and 4 kv heads: 2 kv heads take the
+    # GQA expansion, which the ungrouped blocks above pass by
+    _attention_block_matches_jax("qwen3-4b", n_kv_heads=2)
+
+
+def _attention_block_matches_jax(name, **over):
+    jcfg, cfg, jp, tp = _smoke(name, **over)
     ja = jax.tree_util.tree_map(lambda a: a[1], jp["stack"]["layers"])["attn"]
     ta = tp["stack"]["layers"][1]["attn"]
     rng = np.random.default_rng(1)
