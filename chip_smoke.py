@@ -34,6 +34,7 @@ outside a checkout of the repository (it imports `repro_torch` from
 """
 import contextlib
 import json
+import math
 import pathlib
 import shutil
 import statistics
@@ -52,6 +53,9 @@ BF16_OPS_PER_S = 989e12
 #: ops per particle of the deposit: x/dx, floor, frac, w*alive, 1-frac,
 #: two products, two atomic adds
 DEPOSIT_OPS = 9
+#: name fragments of the port's CUDA kernels, as the profiler shows them
+PORT_KERNELS = ("deposit_cic", "shuffle_kernel", "flash_fwd_mma",
+                "ssd_cb_kernel", "ssd_chunk_scan_kernel")
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -89,10 +93,7 @@ def _device_us(ev, self_only=False) -> float:
     return 0.0
 
 
-def device_ms(torch, fn, iters: int, kernel: str):
-    """Mean device time of one launch of the CUDA kernel whose name holds
-    `kernel`, over `iters` calls, from torch.profiler (no host time in
-    it); None when the profiler records no device time for that kernel."""
+def _profiled(torch, fn, iters: int):
     from torch.profiler import ProfilerActivity, profile
     fn(0)
     torch.cuda.synchronize()
@@ -100,27 +101,49 @@ def device_ms(torch, fn, iters: int, kernel: str):
         for i in range(iters):
             fn(i)
         torch.cuda.synchronize()
-    total = count = 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            total += _device_us(ev)
-            count += ev.count
-    return total / 1e3 / count if count and total else None
+    return prof.key_averages()
 
 
-def library_device_ms(torch, fn, iters: int):
-    """Mean device time of one call of `fn`, a PyTorch yardstick, over
-    `iters` calls: every kernel, copy and fill it launches, from
-    torch.profiler; None when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    total = sum(_device_us(ev, self_only=True) for ev in prof.key_averages())
-    return total / 1e3 / iters if total else None
+def _per_call_us(events, iters: int, kernel: str | None = None) -> float:
+    """Device us of one call from the profiler's rows: for each kernel, copy
+    or fill (those whose name holds `kernel`, if given), its mean time a
+    launch times its launches a call, ceil(count / iters). The mean is
+    taken per launch because a profile taken late in a long process may
+    miss some of the launches it ran (a row's count below `iters`), while
+    the launches it keeps time alike."""
+    total = 0.0
+    for ev in events:
+        us = _device_us(ev, self_only=True)
+        if us and ev.count and (kernel is None or kernel in ev.key):
+            total += us / ev.count * max(1, math.ceil(ev.count / iters - 1e-9))
+    return total
+
+
+def device_ms(torch, fn, iters: int, kernel: str) -> float:
+    """Device time of one call of `fn`, a wrapper, in its own kernels: the
+    kernels whose name holds `kernel`, each its mean launch times its
+    launches a call (torch.profiler; no host time in it). With one launch
+    a call this is the mean launch; the SSD scan's two kernels add.
+    Raises when the profiler records no device time for such a kernel."""
+    events = _profiled(torch, fn, iters)
+    total = _per_call_us(events, iters, kernel)
+    if not total:
+        raise RuntimeError(f"the profiler recorded no device time for "
+                           f"kernels named {kernel!r}; it recorded "
+                           f"{[(ev.key[:60], _device_us(ev)) for ev in events]}")
+    return total / 1e3
+
+
+def library_device_ms(torch, fn, iters: int) -> float:
+    """Device time of one call of `fn` in everything it launches: kernels,
+    copies and fills (torch.profiler), counted as `device_ms` counts. For a
+    PyTorch yardstick this is its device time; for a wrapper, its whole
+    call (its output allocation's fill, its own kernels, `rho / dx`).
+    Raises when the profiler records no device time."""
+    total = _per_call_us(_profiled(torch, fn, iters), iters)
+    if not total:
+        raise RuntimeError("the profiler recorded no device time")
+    return total / 1e3
 
 
 def profile_steps(torch, dev, n_steps: int = 3) -> dict:
@@ -150,39 +173,73 @@ def _profile_rows(prof, wall_s, n):
                    for ev in prof.key_averages()), key=lambda r: -r[1])
     rows = [r for r in rows if r[1] > 0]
     busy = sum(r[1] for r in rows) / 1e3 / n
+    # the port's own kernels: device ms and recorded launches per step, and
+    # the mean ms a launch (a long process's profile may miss launches)
+    ours = {}
+    for name in PORT_KERNELS:
+        us = sum(u for k, u, _ in rows if name in k)
+        count = sum(c for k, _, c in rows if name in k)
+        ours[name] = [us / 1e3 / n, count / n, us / 1e3 / max(count, 1)]
     return {"device_ms": busy, "profiled_wall_ms": 1e3 * wall_s / n,
             "idle_share": 1 - busy / (1e3 * wall_s / n),
             "launches": sum(r[2] for r in rows) / n,
+            "port_kernels": {k: v for k, v in ours.items() if v[1]},
             "top": [[k[:80], us / 1e3 / n, c / n] for k, us, c in rows[:12]]}
 
 
-def check_deposit(torch, dev, n: int, n_cells: int) -> dict:
-    from repro_torch.kernels.deposit import ops as dops
-    from repro_torch.kernels.deposit.ref import deposit_ref
-    L = 1.0
-    dx = L / n_cells
+def _deposit_inputs(torch, dev, n: int, L: float, seed: int):
     g = torch.Generator(device=dev)
-    g.manual_seed(1234)
+    g.manual_seed(seed)
     x = torch.rand(n, generator=g, device=dev) * L
     # a few positions at and just below L pile into the last cell
     x[:1024] = L
     x[1024:2048] = torch.nextafter(torch.tensor(L), torch.tensor(0.0))
     w = 0.5 + 1.5 * torch.rand(n, generator=g, device=dev)
     alive = (torch.rand(n, generator=g, device=dev) > 0.25).float()
-    got = dops.deposit(x, w, alive, n_cells=n_cells, dx=dx)
-    ref = deposit_ref(x, w, alive, n_cells, dx)
-    torch.cuda.synchronize()
+    return x, w, alive
+
+
+def _deposit_errors(got, ref, w, alive, dx) -> tuple[float, float, float]:
     max_abs = float((got - ref).abs().max())
     rel = max_abs / max(float(ref.abs().max()), 1e-9)
     total = float((w * alive).double().sum())
     charge = abs(float(got.double().sum()) * dx - total) / total
-    print(f"deposit n={n} n_cells={n_cells}: max_abs_err={max_abs:.6g} "
-          f"rel={rel:.3g} charge_err={charge:.3g}")
-    if not rel < 1e-4:
-        raise AssertionError(f"deposit disagrees with plain: rel {rel}")
-    if not charge < 1e-5:
-        raise AssertionError(f"deposit does not conserve charge: {charge}")
+    return max_abs, rel, charge
 
+
+def check_deposit(torch, dev, n: int, n_cells: int) -> dict:
+    """The kernel against its plain version at the main path's shape (the
+    cluster path) and on a grid past the cluster's shared memory (the
+    global-atomic path, at 2^22 particles); times at the main path's
+    shape."""
+    from repro_torch.kernels.deposit import ops as dops
+    from repro_torch.kernels.deposit.ref import deposit_ref
+    L = 1.0
+    paths = {}
+    for nc, nn, expect in ((n_cells, n, "cluster"),
+                           (dops.cluster_cell_limit() + 1, 1 << 22,
+                            "global")):
+        dx = L / nc
+        x, w, alive = _deposit_inputs(torch, dev, nn, L, 1234)
+        got = dops.deposit(x, w, alive, n_cells=nc, dx=dx)
+        ref = deposit_ref(x, w, alive, nc, dx)
+        torch.cuda.synchronize()
+        max_abs, rel, charge = _deposit_errors(got, ref, w, alive, dx)
+        paths[dops.deposit.last_path] = max_abs
+        print(f"deposit n={nn} n_cells={nc} ({dops.deposit.last_path} path):"
+              f" max_abs_err={max_abs:.6g} rel={rel:.3g} "
+              f"charge_err={charge:.3g}")
+        if dops.deposit.last_path != expect:
+            raise AssertionError(f"deposit at {nc} cells took the "
+                                 f"{dops.deposit.last_path} path")
+        if not rel < 1e-4:
+            raise AssertionError(f"deposit disagrees with plain: rel {rel}")
+        if not charge < 1e-5:
+            raise AssertionError(f"deposit does not conserve charge: "
+                                 f"{charge}")
+
+    dx = L / n_cells
+    x, w, alive = _deposit_inputs(torch, dev, n, L, 1234)
     xi = x / dx
     i0 = torch.floor(xi).long()
     frac = xi - i0
@@ -190,22 +247,26 @@ def check_deposit(torch, dev, n: int, n_cells: int) -> dict:
     i0c = i0.clamp(0, n_cells - 1)
     i1c = (i0 + 1).clamp(0, n_cells - 1)
     w0, w1 = wa * (1 - frac), wa * frac
-    ms = time_ms(torch, lambda i: dops.deposit(x, w, alive, n_cells=n_cells,
-                                               dx=dx), 20)
+
+    def kernel(i):
+        return dops.deposit(x, w, alive, n_cells=n_cells, dx=dx)
+    ms = time_ms(torch, kernel, 20)
     plain = time_ms(torch, lambda i: deposit_ref(x, w, alive, n_cells, dx), 5)
+
     def bincounts(i):
         return (torch.bincount(i0c, weights=w0, minlength=n_cells),
                 torch.bincount(i1c, weights=w1, minlength=n_cells))
     lib = time_ms(torch, bincounts, 5)
     lib_dev = library_device_ms(torch, bincounts, 5)
-    dms = device_ms(torch, lambda i: dops.deposit(x, w, alive,
-                                                  n_cells=n_cells, dx=dx),
-                    10, "deposit_cic_kernel")
     b, by = bound_ms(12 * n + 4 * n_cells, DEPOSIT_OPS * n)
-    return {"name": "deposit_cic", "route": "cuda", "device_ms": dms,
+    return {"name": "deposit_cic", "route": "cuda",
+            "device_ms": device_ms(torch, kernel, 10, "deposit_cic"),
+            "call_device_ms": library_device_ms(torch, kernel, 10),
             "source": "src/repro_torch/csrc/deposit.cu",
             "replaces": "src/repro/kernels/deposit/kernel.py:48",
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain,
+            "max_abs_err": paths["cluster"],
+            "global_path_max_abs_err": paths["global"],
+            "ms": ms, "plain_ms": plain,
             "bound_ms": b, "bound_by": by, "library_ms": lib,
             "library_device_ms": lib_dev,
             "shape": f"N={n}, n_cells={n_cells}"}
@@ -280,6 +341,7 @@ def check_bitshuffle(torch, dev, block: int, itemsize: int,
 
     def timed(fn, plain, yardstick):
         return {"ms": time_ms(torch, fn, n_blocks), "device_ms": dev_ms(fn),
+                "call_device_ms": library_device_ms(torch, fn, n_blocks),
                 "plain_ms": time_ms(torch, plain, n_blocks),
                 "library_ms": time_ms(torch, yardstick, n_blocks),
                 "library_device_ms": library_device_ms(torch, yardstick,
@@ -332,6 +394,7 @@ def check_bitshuffle(torch, dev, block: int, itemsize: int,
         "shape": f"{leaf_blocks} x {block} B leaf, itemsize {itemsize}",
         "ms": time_ms(torch, blocks_kernel, 20),
         "device_ms": device_ms(torch, blocks_kernel, 20, "shuffle_kernel"),
+        "call_device_ms": library_device_ms(torch, blocks_kernel, 20),
         "plain_ms": time_ms(torch, lambda i: shuffle_blocks_ref(
             leaf, block=block, itemsize=itemsize), 20),
         "library_ms": time_ms(torch, leaf_lib, 20),
@@ -532,6 +595,8 @@ def check_flash_attention(torch, dev) -> dict:
             "ms": time_ms(torch, lambda i: fops.flash_attention(q, k, v), 50),
             "device_ms": device_ms(torch, lambda i: fops.flash_attention(
                 q, k, v), 20, "flash_fwd_mma"),
+            "call_device_ms": library_device_ms(
+                torch, lambda i: fops.flash_attention(q, k, v), 20),
             "plain_ms": time_ms(torch, lambda i: flash_attention_plain(
                 q, k, v, q_chunk=256, kv_chunk=256), 5),
             "library_ms": time_ms(torch, yardstick, 50),
@@ -558,25 +623,33 @@ def ssd_inputs(torch, dev, b, s, h, p, n, seed):
 def check_ssd_scan(torch, dev) -> dict:
     """The kernel against the plain `ssd_chunked` (y and final state) at
     zamba2-2.7b's prefill shape (b=4, s=512, h=80, p=64, n=64, chunk 128),
-    at n=128 and at a padded s; times at the prefill shape."""
+    at n=128 and at a padded s, and against `ssd_chunked_split` (the plain
+    version with the kernel's bf16 hi/lo operands) at the prefill shape;
+    times at the prefill shape."""
     from repro_torch.kernels.ssd_scan import ops as sops
-    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.kernels.ssd_scan.ref import (ssd_chunked,
+                                                  ssd_chunked_split)
     errs = {}
     for b, s, h, p, n in ((4, 512, 80, 64, 64), (2, 512, 16, 64, 128),
                           (2, 200, 16, 64, 64)):
         args = ssd_inputs(torch, dev, b, s, h, p, n, s + n)
         y, final = sops.ssd_scan(*args, chunk=128)
-        yr, fr = plain_scan(*args, chunk=128)
+        refs = {"plain": plain_scan(*args, chunk=128)}
+        if s % 128 == 0 and n == 64:
+            refs["split"] = ssd_chunked_split(*args, chunk=128)
         torch.cuda.synchronize()
-        ey = _max_err(y, yr)
-        ef = _max_err(final, fr) / max(1.0, float(fr.abs().max()))
-        errs[(b, s, h, p, n)] = (ey, ef)
-        # y: bf16 of fp32 sums in another order; state: fp32, relative
-        if not (ey < 5e-2 and ef < 1e-4):
-            raise AssertionError(f"ssd b={b} s={s} h={h} p={p} n={n}: y "
-                                 f"err {ey}, state rel err {ef}")
-    print("ssd_scan vs plain (y tol 5e-2, state rel tol 1e-4): " + ", ".join(
-        f"{k}: y {v[0]:.4g} state {v[1]:.3g}" for k, v in errs.items()))
+        for which, (yr, fr) in refs.items():
+            ey = _max_err(y, yr)
+            ef = _max_err(final, fr) / max(1.0, float(fr.abs().max()))
+            errs[(b, s, h, p, n, which)] = (ey, ef)
+            # y: bf16 of fp32 sums in another order; state: fp32, relative
+            if not (ey < 5e-2 and ef < 1e-4):
+                raise AssertionError(f"ssd b={b} s={s} h={h} p={p} n={n} vs "
+                                     f"{which}: y err {ey}, state rel err "
+                                     f"{ef}")
+    print("ssd_scan vs plain and vs split (y tol 5e-2, state rel tol 1e-4): "
+          + ", ".join(f"{k}: y {v[0]:.4g} state {v[1]:.3g}"
+                      for k, v in errs.items()))
 
     b, s, h, p, n, Q = 4, 512, 80, 64, 64, 128
     args = ssd_inputs(torch, dev, b, s, h, p, n, 1)
@@ -584,20 +657,29 @@ def check_ssd_scan(torch, dev) -> dict:
     tri = Q * (Q + 1) // 2
     # C.B once per (batch, chunk), shared by the heads; per head the
     # decay-masked product and the two state terms
-    ops = b * nc * tri * n * 2 + b * h * nc * (tri * p * 2 + 2 * Q * n * p * 2)
+    head_ops = b * h * nc * (tri * p * 2 + 2 * Q * n * p * 2)
+    cb_ops = b * nc * tri * n * 2
     nbytes = 2 * (2 * b * s * h * p) + 4 * b * s * h + 2 * 4 * h \
         + 2 * (2 * b * s * n) + 4 * b * h * p * n
-    bb, by = bound_ms(nbytes, ops)
+    # the kernel runs every product on bf16 tensor cores, the three with an
+    # fp32 operand twice (hi and lo); `fp32_ops_bound_ms` counts the
+    # function's operations once, at the fp32 FMA rate
+    bb, by = bound_ms(nbytes, cb_ops + 2 * head_ops, BF16_OPS_PER_S)
+    fp32_bound, _ = bound_ms(nbytes, cb_ops + head_ops)
+
+    def kernel(i):
+        return sops.ssd_scan(*args)
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:72",
-            "max_abs_err": errs[(b, s, h, p, n)][0],
-            "ms": time_ms(torch, lambda i: sops.ssd_scan(*args), 20),
-            "device_ms": device_ms(torch, lambda i: sops.ssd_scan(*args), 10,
-                                   "ssd_scan_kernel"),
+            "max_abs_err": errs[(b, s, h, p, n, "plain")][0],
+            "ms": time_ms(torch, kernel, 20),
+            "device_ms": device_ms(torch, kernel, 10, "ssd_"),
+            "call_device_ms": library_device_ms(torch, kernel, 10),
             "plain_ms": time_ms(torch, lambda i: ssd_chunked(*args), 5),
             "library_ms": None, "library_device_ms": None,
             "bound_ms": bb, "bound_by": by,
+            "fp32_ops_bound_ms": fp32_bound,
             "shape": f"b={b} s={s} h={h} p={p} n={n} chunk {Q}"}
 
 
@@ -890,7 +972,8 @@ def profile_serve(torch, eng, cfg, tokens, gen, n_decode: int = 4) -> dict:
 def print_kernel(k: dict):
     lib = ("-" if k["library_ms"] is None else
            f"{k['library_ms']:.4f} (device {k['library_device_ms']})")
-    print(f"  {k['name']}: {k['ms']:.4f} ms (device {k['device_ms']}, "
+    print(f"  {k['name']}: {k['ms']:.4f} ms (device {k['device_ms']:.5f}, "
+          f"whole call {k['call_device_ms']:.5f}, "
           f"plain {k['plain_ms']:.4f}, yardstick {lib}, "
           f"bound {k['bound_ms']:.5f} by {k['bound_by']}) at {k['shape']}")
 
@@ -921,7 +1004,8 @@ def main() -> int:
     print(f"kernel build: {build_s:.2f} s")
     for src, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill", "error")):
                 print(f"  {src}: {line.strip()}")
 
     # the main path's shapes: the paper's 2^25-slot species on 100,000

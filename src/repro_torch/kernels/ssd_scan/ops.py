@@ -18,29 +18,30 @@ from repro_torch.kernels.ssd_scan.ref import COMPUTE_DTYPE, ssd_chunked
 
 DEFAULT_CHUNK = 128
 MAX_CHUNK = 128
-#: shared memory a block may use on Hopper (227 KB)
-MAX_SMEM = 232_448
+#: state widths the kernel is built for, and the slice of p a block takes
+KERNEL_N = (16, 32, 64, 128)
+P_SLICE = 32
 _SIGNATURES = {"jbp_ssd_scan": (
-    *(ctypes.c_void_p,) * 9, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)}
+    *(ctypes.c_void_p,) * 10, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)}
 
 
-def smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Dynamic shared memory of one block: state [n,p], x*dt [q,p] and the
-    decay-masked scores [q,q+1] in fp32, three [q] fp32 vectors, and B and
-    C as bf16 rows of n+2."""
-    return (4 * (n * p + chunk * p + chunk * (chunk + 1) + 3 * chunk)
-            + 2 * 2 * chunk * (n + 2))
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it where its start is not 16-byte aligned (the
+    kernel reads x, B and C by 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _kernel(x, dt, A, B, C, D, chunk, initial_state):
+    """Two launches: `ssd_cb_kernel` (C.B^T once per batch and chunk, into
+    an fp32 scratch) and `ssd_chunk_scan_kernel`; one call of the
+    wrapper."""
     b, s, h, p = x.shape
     n = B.shape[-1]
-    if chunk > MAX_CHUNK or n % 2 or smem_bytes(chunk, p, n) > MAX_SMEM:
+    if chunk > MAX_CHUNK or n not in KERNEL_N or p % P_SLICE:
         raise ValueError(f"ssd_scan kernel: chunk {chunk} (<= {MAX_CHUNK}), "
-                         f"p {p}, n {n} (even) need "
-                         f"{smem_bytes(chunk, p, n)} B of shared memory "
-                         f"(<= {MAX_SMEM})")
+                         f"n {n} (one of {KERNEL_N}), p {p} (a multiple of "
+                         f"{P_SLICE})")
     _build.require_cuda("ssd_scan", x, B, C, dtype=torch.bfloat16)
     _build.require_cuda("ssd_scan", dt, A, D, dtype=torch.float32)
     if any(t.device != x.device for t in (dt, A, D)):
@@ -54,14 +55,18 @@ def _kernel(x, dt, A, B, C, D, chunk, initial_state):
         if initial_state.shape != (b, h, p, n):
             raise ValueError("ssd_scan: initial_state must be [b,h,p,n]")
         init = initial_state.data_ptr()
+    x, B, C = _aligned(x), _aligned(B), _aligned(C)
     y = torch.empty((b, s, h, p), dtype=COMPUTE_DTYPE, device=x.device)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((b, s // chunk, MAX_CHUNK, MAX_CHUNK),
+                          dtype=torch.float32, device=x.device)
     lib = _build.load("ssd_scan", _SIGNATURES)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x):
         rc = lib.jbp_ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), D.data_ptr(), init, y.data_ptr(), final.data_ptr(),
-            b, s, h, p, n, chunk, smem_bytes(chunk, p, n), _build.stream_of(x))
+            C.data_ptr(), D.data_ptr(), init, scratch.data_ptr(),
+            y.data_ptr(), final.data_ptr(), b, s, h, p, n, chunk,
+            _build.stream_of(x))
     _build.check(rc, "jbp_ssd_scan")
     ssd_scan.launches += 1
     return y, final

@@ -61,6 +61,57 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk=128, initial_state=None):
     return torch.stack(ys, dim=1).reshape(b, s, h, p), state
 
 
+def split_bf16(v):
+    """v as the kernel feeds an fp32 operand to bf16 tensor cores: hi =
+    bf16(v), lo = bf16(v - hi), and the product sees hi + lo (~16 bits of
+    v; the sum is exact in fp32)."""
+    hi = v.to(COMPUTE_DTYPE).float()
+    return hi + (v - hi).to(COMPUTE_DTYPE).float()
+
+
+def ssd_chunked_split(x, dt, A, B, C, D, *, chunk=128, initial_state=None):
+    """`ssd_chunked` with the roundings of the CUDA kernel
+    (`csrc/ssd_scan.cu`): C.B^T of the bf16 values with fp32 sums; the
+    fp32 operand of each other product split into bf16 hi + lo (the
+    decay-masked M' = C.B^T * exp(cs_l - cs_s) * dt_s against x, the state
+    against C, x * dt exp(cs_last - cs_s) against B); x, B and C enter as
+    they are (bf16 on the card). Same contract as `ssd_chunked`."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not divisible by chunk "
+                         f"{chunk}")
+    nc = s // chunk
+    xc = x.reshape(b, nc, chunk, h, p).float()
+    dtc = dt.reshape(b, nc, chunk, h).float()
+    Bc = B.reshape(b, nc, chunk, n).float()
+    Cc = C.reshape(b, nc, chunk, n).float()
+    A, D = A.float(), D.float()
+    idx = torch.arange(chunk, device=x.device)
+    tri = idx[:, None] >= idx[None, :]
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    ys = []
+    for c in range(nc):
+        xq, dtq, Bq, Cq = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
+        cs = torch.cumsum(dtq * A, dim=1)                        # [b,q,h]
+        total = cs[:, -1]
+        G = torch.einsum("bln,bsn->bls", Cq, Bq)
+        diff = cs[:, :, None, :] - cs[:, None, :, :]             # [b,l,s,h]
+        L = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
+        Mp = G[..., None] * L * dtq[:, None, :, :]
+        y = torch.einsum("bln,bhpn->blhp", Cq, split_bf16(state)) \
+            * torch.exp(cs)[..., None]
+        y = y + torch.einsum("blsh,bshp->blhp", split_bf16(Mp), xq)
+        fs = dtq * torch.exp(total[:, None] - cs)                # [b,q,h]
+        upd = torch.einsum("bshp,bsn->bhpn", split_bf16(xq * fs[..., None]),
+                           Bq)
+        state = state * torch.exp(total)[:, :, None, None] + upd
+        ys.append((y + D[None, None, :, None] * xq).to(COMPUTE_DTYPE))
+    return torch.stack(ys, dim=1).reshape(b, s, h, p), state
+
+
 def ssd_recurrent_reference(x, dt, A, B, C, D, *, initial_state=None):
     """Step-by-step oracle (tests only)."""
     b, s, h, p = x.shape

@@ -221,3 +221,159 @@ def test_ssd_kernel_carries_an_initial_state(cuda_device):
     assert float((y2.float() - y_all[:, 128:].float()).abs().max()) < 5e-2
     assert float((f2 - f_all).abs().max()) < 1e-4 * max(
         1.0, float(f_all.abs().max()))
+
+
+# ---- the redesigned kernels: the SSD scan's p slices, partial chunks and
+# split state; the deposit's cluster and global paths
+
+def _ssd_check(dev, b, s, h, p, n, seed, initial=False):
+    x, dt, A, B, C, D = _ssd_inputs(dev, b, s, h, p, n, seed)
+    init = None
+    if initial:
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 1)
+        init = torch.randn((b, h, p, n), generator=g, device=dev)
+    before = sops.ssd_scan.launches
+    y, final = sops.ssd_scan(x, dt, A, B, C, D, initial_state=init)
+    assert sops.ssd_scan.launches == before + 1     # two kernels, one call
+    chunk = min(128, s)
+    pad = (-s) % chunk
+    yr, fr = ssd_chunked(F.pad(x, (0, 0, 0, 0, 0, pad)),
+                         F.pad(dt, (0, 0, 0, pad)), A,
+                         F.pad(B, (0, 0, 0, pad)), F.pad(C, (0, 0, 0, pad)),
+                         D, chunk=chunk, initial_state=init)
+    torch.cuda.synchronize()
+    assert y.shape == (b, s, h, p) and final.shape == (b, h, p, n)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(final).all()
+    assert float((y.float() - yr[:, :s].float()).abs().max()) < 5e-2
+    scale = max(1.0, float(fr.abs().max()))
+    assert float((final - fr).abs().max()) < 1e-4 * scale
+
+
+# h = 7: no head count is special to the kernel (one head a block, C.B^T
+# shared by all heads of a batch); p = 32 is one p slice, p = 64 two
+@pytest.mark.parametrize("p", [32, 64])
+@pytest.mark.parametrize("n", [64, 128])
+def test_ssd_kernel_at_odd_heads_and_p_slices(cuda_device, p, n):
+    _ssd_check(cuda_device, 2, 256, 7, p, n, 100 * p + n)
+
+
+# s = 1 and 127: one chunk shorter than a 16-row tile or than 128; s = 129:
+# a whole chunk and one step; s = 512: the prefill's four chunks
+@pytest.mark.parametrize("s", [1, 127, 129, 512])
+@pytest.mark.parametrize("initial", [False, True])
+def test_ssd_kernel_at_partial_chunks(cuda_device, s, initial):
+    _ssd_check(cuda_device, 2, s, 5, 64, 64, s + 7 * initial, initial)
+
+
+@pytest.mark.parametrize("s", [256, 200])
+def test_ssd_kernel_split_state_equals_one_scan(cuda_device, s):
+    """Scanning s in two halves, the second from the first's final state,
+    gives the one scan's y and final state."""
+    b, h, p, n = 2, 5, 64, 64
+    x, dt, A, B, C, D = _ssd_inputs(cuda_device, b, s, h, p, n, 31 + s)
+    y_all, f_all = sops.ssd_scan(x, dt, A, B, C, D)
+    cut = s // 2
+    first, second = ([t[:, part].contiguous() for t in (x, dt, B, C)]
+                     for part in (slice(0, cut), slice(cut, None)))
+    y1, f1 = sops.ssd_scan(first[0], first[1], A, first[2], first[3], D)
+    y2, f2 = sops.ssd_scan(second[0], second[1], A, second[2], second[3], D,
+                           initial_state=f1)
+    torch.cuda.synchronize()
+    y = torch.cat([y1, y2], 1)
+    assert float((y.float() - y_all.float()).abs().max()) < 5e-2
+    assert float((f2 - f_all).abs().max()) < 1e-4 * max(
+        1.0, float(f_all.abs().max()))
+
+
+def test_ssd_kernel_takes_inputs_that_start_off_16_bytes(cuda_device):
+    """x, B and C as contiguous views 2 bytes into their storage: the
+    wrapper copies them to aligned memory for the kernel's 16-byte
+    copies, and the result is the aligned call's."""
+    args = _ssd_inputs(cuda_device, 2, 256, 5, 64, 64, 23)
+
+    def shifted(t):
+        flat = torch.cat([t.new_zeros(1), t.reshape(-1)])
+        return flat[1:].view(t.shape)
+
+    x, dt, A, B, C, D = args
+    odd = (shifted(x), dt, A, shifted(B), shifted(C), D)
+    assert all(t.data_ptr() % 16 for t in (odd[0], odd[3], odd[4]))
+    y, final = sops.ssd_scan(*args)
+    y_odd, final_odd = sops.ssd_scan(*odd)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_odd) and torch.equal(final, final_odd)
+
+
+def test_ssd_kernel_matches_its_rounding_reference(cuda_device):
+    """Against `ssd_chunked_split`, the plain version with the kernel's
+    bf16 hi/lo operands, at the prefill's chunking."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_split
+    x, dt, A, B, C, D = _ssd_inputs(cuda_device, 2, 512, 6, 64, 64, 5)
+    y, final = sops.ssd_scan(x, dt, A, B, C, D)
+    ys, fs = ssd_chunked_split(x, dt, A, B, C, D)
+    torch.cuda.synchronize()
+    assert float((y.float() - ys.float()).abs().max()) < 5e-2
+    assert float((final - fs).abs().max()) < 1e-4 * max(
+        1.0, float(fs.abs().max()))
+
+
+def _deposit_case(dev, n, n_cells, seed, *, dead=False, offset=0):
+    rng = np.random.default_rng(seed)
+    dx = 1.0 / n_cells
+    m = n + offset
+    x = rng.uniform(0, 1, m).astype(np.float32)
+    x[:3] = [0.0, 1.0, np.nextafter(np.float32(1.0), np.float32(0.0))]
+    w = rng.uniform(0.5, 2.0, m).astype(np.float32)
+    alive = (np.zeros(m) if dead else
+             rng.uniform(0, 1, m) > 0.25).astype(np.float32)
+    tx, tw, ta = (torch.from_numpy(a).to(dev)[offset:]
+                  for a in (x, w, alive))
+    got = dops.deposit(tx, tw, ta, n_cells=n_cells, dx=dx)
+    ref = deposit_ref(tx, tw, ta, n_cells, dx)
+    torch.cuda.synchronize()
+    return got, ref, tx, tw, ta, dx
+
+
+def _assert_deposit(got, ref, tw, ta, dx):
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-4
+    total = float((tw * ta).double().sum())
+    assert abs(float(got.double().sum()) * dx - total) / total < 1e-5
+
+
+@pytest.mark.parametrize("over", [False, True])
+def test_deposit_kernel_on_both_sides_of_the_cluster_limit(cuda_device,
+                                                           over):
+    limit = dops.cluster_cell_limit()
+    n_cells = limit + 1 if over else limit - 1
+    got, ref, _, tw, ta, dx = _deposit_case(cuda_device, 1 << 20, n_cells,
+                                            int(over))
+    assert dops.deposit.last_path == ("global" if over else "cluster")
+    _assert_deposit(got, ref, tw, ta, dx)
+
+
+# N not a multiple of 4 (the scalar tail), and a start 4 bytes past the
+# 16-byte alignment (scalar loads throughout), on both paths
+@pytest.mark.parametrize("n,offset", [((1 << 20) + 3, 0), (1 << 20, 1),
+                                      (4097, 1)])
+@pytest.mark.parametrize("n_cells", [100_000, 300_000])
+def test_deposit_kernel_ragged_and_unaligned(cuda_device, n, offset,
+                                            n_cells):
+    got, ref, tx, tw, ta, dx = _deposit_case(cuda_device, n, n_cells,
+                                             n + offset, offset=offset)
+    assert tx.shape == (n,)
+    _assert_deposit(got, ref, tw, ta, dx)
+
+
+@pytest.mark.parametrize("n_cells", [100_000, 300_000])
+def test_deposit_kernel_with_all_particles_dead(cuda_device, n_cells):
+    got, _, _, _, _, _ = _deposit_case(cuda_device, 1 << 16, n_cells, 9,
+                                       dead=True)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_deposit_kernel_conserves_charge_at_the_paper_grid(cuda_device):
+    got, ref, _, tw, ta, dx = _deposit_case(cuda_device, 1 << 22, 100_000,
+                                            17)
+    assert dops.deposit.last_path == "cluster"
+    _assert_deposit(got, ref, tw, ta, dx)

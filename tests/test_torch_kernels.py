@@ -23,6 +23,7 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_plain,
                                                      reference_attention)
 from repro_torch.kernels.ssd_scan import ops as sops
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunked,
+                                              ssd_chunked_split,
                                               ssd_recurrent_reference)
 
 BF16_ULP = 2.0 ** -7
@@ -285,3 +286,35 @@ def test_ssd_padded_wrapper_keeps_the_final_state():
     assert_ulps(y, y40, ulps=2)
     with pytest.raises(ValueError, match="not divisible"):
         JS.ssd_chunked(*map(jnp.asarray, args), chunk=64)
+
+
+@pytest.mark.parametrize("p,n", [(32, 64), (64, 16)])
+def test_ssd_kernel_rounding_meets_the_chip_tolerances(p, n):
+    """The CUDA kernel's precision scheme on the CPU: bf16 C.B^T with fp32
+    sums, and each fp32 operand split into bf16 hi + lo
+    (`ssd_chunked_split`), against the JAX package's chunked oracle and its
+    Pallas kernel (interpret mode) on the same bf16 x, B, C and zamba2's
+    A (cs reaches about -200 in a chunk), at the tolerances the kernel is
+    held to on the card: y 5e-2, final state 1e-4 relative."""
+    rng = np.random.default_rng(p + n)
+    b, s, h, chunk = 2, 256, 3, 128
+    bf = lambda a: f32(torch.from_numpy(a.astype(np.float32)).bfloat16())
+    x = bf(rng.normal(size=(b, s, h, p)))
+    dt = np.log1p(np.exp(rng.normal(size=(b, s, h)) - 1.0)).astype(
+        np.float32)
+    A = (-np.exp(np.linspace(0.0, 2.772588722, h))).astype(np.float32)
+    B = bf(rng.normal(size=(b, s, n)) * 0.3)
+    C = bf(rng.normal(size=(b, s, n)) * 0.3)
+    D = np.ones((h,), np.float32)
+    args = (x, dt, A, B, C, D)
+    y, final = ssd_chunked_split(*map(torch.from_numpy, args), chunk=chunk)
+    jy, jfinal = JS.ssd_chunked(*map(jnp.asarray, args), chunk=chunk)
+    pallas = jsops.ssd_scan(*map(jnp.asarray, args), chunk=chunk,
+                            interpret=True)
+    assert np.abs(f32(y) - f32(jy)).max() < 5e-2
+    assert np.abs(f32(y) - f32(pallas)).max() < 5e-2
+    scale = max(1.0, np.abs(f32(jfinal)).max())
+    assert np.abs(f32(final) - f32(jfinal)).max() < 1e-4 * scale
+    # and with the port's plain version, which rounds nothing but y
+    _, plain_final = ssd_chunked(*map(torch.from_numpy, args), chunk=chunk)
+    assert np.abs(f32(final) - f32(plain_final)).max() < 1e-4 * scale
