@@ -15,15 +15,22 @@
    checkpoint, restore and restart, and checks the results and the kernels'
    launch counts (the checkpoint's shuffle: one launch a shuffled leaf);
 5. holds the flash attention and SSD scan kernels against their plain
-   versions at zamba2-2.7b's prefill shapes (and a few others);
-6. drives the serving path: zamba2-2.7b at full width (54 Mamba2 layers,
-   d_model 2560, 2,422,670,240 random params from a seed) through
-   `ServeEngine.generate` (batch 4, prompt 512, 32 new tokens), checks the
-   kernels' launch counts (9 flash, 54 SSD per prefill, none in decode),
-   each kernel against its plain version on the prefill's activations,
-   and, in units of a noise floor, the forward through the kernels
-   against the one through the plain versions and decode against a
-   teacher-forced forward;
+   versions at the serving paths' shapes (and a few others), and times
+   flash at each serving shape beside SDPA;
+6. drives three serving paths through `ServeEngine.generate` (batch 4,
+   prompt 512, 32 new tokens), random params from a seed, each with its
+   own peak memory: zamba2-2.7b at full width and depth (2,422,670,240
+   params; 9 flash and 54 SSD launches per prefill), deepseek-moe-16b at
+   full width and depth (16,375,728,128 params, initialised in bf16; 28
+   flash launches per prefill) and llama-3.2-vision-90b at full width and
+   10 of its 100 layers (10,657,898,500 params in bf16, seeded vision
+   embeddings, cross gates at 1.0; 10 flash launches per prefill, 2 of
+   them over 1600 image tokens), none in decode; each kernel against its
+   plain version on the prefill's activations, and, in units of a noise
+   floor, the forward through the kernels against the one through the
+   plain versions and decode against a teacher-forced forward (for the
+   moe, at no-drop capacity, with the share of routing decisions that
+   agree);
 7. prints one JSON line of per-kernel numbers, then, as the last line,
    `{"ok": true, "device": {...}}`.
 
@@ -33,6 +40,7 @@ outside a checkout of the repository (it imports `repro_torch` from
 `src/` beside it). It never imports JAX or the JAX package.
 """
 import contextlib
+import dataclasses
 import json
 import math
 import pathlib
@@ -546,63 +554,100 @@ def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def check_flash_attention(torch, dev) -> dict:
-    """The kernel against its plain version at the serving shape of
-    zamba2-2.7b's shared block (B=4, S=512, H=32, D=80, bf16, causal), and
-    at D 64/128, non-causal and ragged S; times at the serving shape."""
+def flash_limit(top: float) -> float:
+    """The flash kernel's limit against its plain version for outputs of
+    largest magnitude `top`: two bf16 ulps of `top` (both round an fp32
+    result that differs only in the order of its sums; one ulp is what was
+    measured), and never more than the earlier 3e-2, set for values up to
+    ~4, grown as a bf16 ulp does above that."""
+    ulp = 2.0 ** (math.floor(math.log2(max(top, 2.0 ** -126))) - 7)
+    return min(3e-2 * max(1.0, top / 4), 2 * ulp)
+
+
+#: the flash kernel's shapes on the serving paths (B, Sq, Skv, H, D, causal;
+#: H is the query heads: the wrapper's callers expand GQA's kv heads)
+FLASH_SERVE_SHAPES = {
+    "zamba2-2.7b": (4, 512, 512, 32, 80, True),
+    "deepseek-moe-16b": (4, 512, 512, 16, 128, True),
+    "llama-3.2-vision-90b self": (4, 512, 512, 64, 128, True),
+    "llama-3.2-vision-90b cross": (4, 512, 1600, 64, 128, False),
+}
+
+
+def flash_bound(B, Sq, Skv, H, D, causal) -> tuple[float, str]:
+    """q, k, v read once and the output written once (bf16); 4·D
+    operations a (query, key) pair the mask keeps, on bf16 tensor cores."""
+    if causal and Sq != Skv:
+        raise ValueError("causal bound for Sq == Skv only")
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+    return bound_ms(2 * B * H * D * (2 * Sq + 2 * Skv),
+                    4 * D * pairs * B * H, BF16_OPS_PER_S)
+
+
+def check_flash_attention(torch, dev) -> tuple[dict, list[dict]]:
+    """The kernel against its plain version at the serving shapes
+    (`FLASH_SERVE_SHAPES`), and at D 64/128, non-causal and ragged S;
+    times at each serving shape, beside SDPA's. Returns the kernels-line
+    row (zamba2's shape) and the rows of every serving shape."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-    # bf16 outputs of two fp32 computations that round p and sum in other
-    # orders: one or two bf16 ulps of values up to ~4
-    tol = 3e-2
     g = torch.Generator(device=dev)
     g.manual_seed(80)
 
-    def qkv(B, S, H, D):
+    def qkv(B, Sq, Skv, H, D):
         return [torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
-                for _ in range(3)]
+                for S in (Sq, Skv, Skv)]
 
     errs = {}
-    for B, S, H, D, causal in ((4, 512, 32, 80, True), (2, 512, 8, 64, True),
-                               (2, 512, 8, 128, True), (2, 512, 8, 80, False),
-                               (2, 320, 8, 80, True), (2, 320, 8, 128, False)):
-        q, k, v = qkv(B, S, H, D)
+    cases = [(2, 512, 512, 8, 64, True), (2, 512, 512, 8, 128, True),
+             (2, 512, 512, 8, 80, False), (2, 320, 320, 8, 80, True),
+             (2, 320, 320, 8, 128, False), *FLASH_SERVE_SHAPES.values()]
+    for B, Sq, Skv, H, D, causal in cases:
+        q, k, v = qkv(B, Sq, Skv, H, D)
         got = fops.flash_attention(q, k, v, causal=causal)
         ref = flash_attention_plain(q, k, v, causal=causal, q_chunk=256,
                                     kv_chunk=256)
         torch.cuda.synchronize()
-        errs[(B, S, H, D, causal)] = err = _max_err(got, ref)
-        if not err < tol:
-            raise AssertionError(f"flash B={B} S={S} H={H} D={D} "
-                                 f"causal={causal}: max_abs_err {err}")
-    print("flash_attention max_abs_err vs plain (tol 3e-2): " + ", ".join(
-        f"{k}: {v:.4g}" for k, v in errs.items()))
+        err, top = _max_err(got, ref), float(ref.float().abs().max())
+        errs[(B, Sq, Skv, H, D, causal)] = err
+        if not err <= flash_limit(top):
+            raise AssertionError(f"flash B={B} Sq={Sq} Skv={Skv} H={H} D={D}"
+                                 f" causal={causal}: max_abs_err {err} "
+                                 f"(max |ref| {top}, limit "
+                                 f"{flash_limit(top)})")
+        print(f"flash_attention vs plain {(B, Sq, Skv, H, D, causal)}: "
+              f"max_abs_err {err:.4g}, max |ref| {top:.4g}, limit "
+              f"{flash_limit(top):.4g}")
 
-    B, S, H, D = 4, 512, 32, 80
-    q, k, v = qkv(B, S, H, D)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))    # [B,H,S,D] views
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for name, (B, Sq, Skv, H, D, causal) in FLASH_SERVE_SHAPES.items():
+        q, k, v = qkv(B, Sq, Skv, H, D)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [B,H,S,D]
 
-    def yardstick(i):
-        return sdpa(qt, kt, vt, is_causal=True)
-    pairs = S * (S + 1) // 2                 # causal (query, key) pairs
-    b, by = bound_ms(4 * B * S * H * D * 2, 4 * D * pairs * B * H,
-                     BF16_OPS_PER_S)
-    return {"name": "flash_attention", "route": "cuda",
+        def kernel(i):
+            return fops.flash_attention(q, k, v, causal=causal)
+
+        def yardstick(i):
+            return sdpa(qt, kt, vt, is_causal=causal)
+        b, by = flash_bound(B, Sq, Skv, H, D, causal)
+        rows.append({
+            "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
-            "max_abs_err": errs[(B, S, H, D, True)],
-            "ms": time_ms(torch, lambda i: fops.flash_attention(q, k, v), 50),
-            "device_ms": device_ms(torch, lambda i: fops.flash_attention(
-                q, k, v), 20, "flash_fwd_mma"),
-            "call_device_ms": library_device_ms(
-                torch, lambda i: fops.flash_attention(q, k, v), 20),
+            "path": name,
+            "max_abs_err": errs[(B, Sq, Skv, H, D, causal)],
+            "ms": time_ms(torch, kernel, 50),
+            "device_ms": device_ms(torch, kernel, 20, "flash_fwd_mma"),
+            "call_device_ms": library_device_ms(torch, kernel, 20),
             "plain_ms": time_ms(torch, lambda i: flash_attention_plain(
-                q, k, v, q_chunk=256, kv_chunk=256), 5),
+                q, k, v, causal=causal, q_chunk=256, kv_chunk=256), 5),
             "library_ms": time_ms(torch, yardstick, 50),
             "library_device_ms": library_device_ms(torch, yardstick, 20),
             "bound_ms": b, "bound_by": by,
-            "shape": f"B={B} S={S} H={H} D={D} bf16 causal"}
+            "shape": f"B={B} Sq={Sq} Skv={Skv} H={H} D={D} bf16 "
+                     f"{'causal' if causal else 'non-causal'}"})
+    return rows[0], rows
 
 
 def ssd_inputs(torch, dev, b, s, h, p, n, seed):
@@ -738,18 +783,19 @@ class FirstAndLast:
 def check_on_activations(torch, flash_calls, scan_calls) -> dict:
     """What each kernel gave the prefill against its plain version on the
     same inputs, the activations of the model: the first and the last call
-    of each. The limits are those of the kernel checks (flash 3e-2, SSD y
-    5e-2, SSD state relative 1e-4), set there for values up to ~4; above
-    that an absolute limit grows with the reference's largest value, as a
-    bf16 ulp does."""
+    of each. The limits are those of the kernel checks: flash
+    `flash_limit` of the reference's largest value; SSD y 5e-2, set for
+    values up to ~4 and grown above that as a bf16 ulp does, and the SSD
+    state relative 1e-4."""
     out = {}
     for which, (args, kw, got) in flash_calls.items():
         ref = plain_flash(*args, **kw)
         top = float(ref.float().abs().max())
         err = _max_err(got, ref)
         out[f"flash_attention/{which}"] = {"max_abs_err": err,
-                                           "max_abs": top}
-        if not err < 3e-2 * max(1.0, top / 4):
+                                           "max_abs": top,
+                                           "limit": flash_limit(top)}
+        if not err <= flash_limit(top):
             raise AssertionError(f"flash on the prefill's {which} call: "
                                  f"max_abs_err {err} (max |out| {top})")
     for which, (args, kw, (y, final)) in scan_calls.items():
@@ -766,35 +812,169 @@ def check_on_activations(torch, flash_calls, scan_calls) -> dict:
     return out
 
 
+def serve_launches(cfg) -> dict:
+    """The kernels' launches a prefill of `cfg`, a hybrid, moe or vlm
+    config: hybrid, flash in the shared block after every
+    `shared_attn_interval` Mamba2 layers and SSD in every Mamba2 layer;
+    moe and vlm, flash in every layer (vlm: self and cross layers)."""
+    if cfg.family == "hybrid":
+        return {"flash_attention": cfg.n_layers // cfg.shared_attn_interval,
+                "ssd_scan": cfg.n_layers}
+    return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+
+
+def serve_config(arch: str):
+    """The config `chip_smoke.py` serves for `arch`, with its cuts: zamba2
+    as published; deepseek-moe-16b at full width and depth and
+    llama-3.2-vision-90b at full width and 10 of its 100 layers, both
+    initialised in bf16 (fp32 masters beside the engine's bf16 copy need
+    98 GB for deepseek: bf16 draws are the same draws rounded once, so the
+    engine holds the same values)."""
+    from repro_torch.configs.base import get_config
+    cuts = {"deepseek-moe-16b": dict(param_dtype="bfloat16"),
+            "llama-3.2-vision-90b": dict(n_layers=10,
+                                         param_dtype="bfloat16")}
+    return dataclasses.replace(get_config(arch), **cuts.get(arch, {}))
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Record each MoE FFN call's routing while the block runs it, as two
+    [B,S,E] masks: the experts each token chose (its top-k) and those of
+    them whose assignment kept a slot under the call's group-local capacity
+    (one extra router product a call, off the timed runs)."""
+    from repro_torch.models import moe, transformer
+    calls, saved = [], transformer.moe_ffn
+
+    def rec(p, x, cfg, **kw):
+        _, _, top_e = moe.route(p, x, cfg)
+        order, _, valid = moe.dispatch(top_e, cfg.n_experts,
+                                       moe._capacity(x.shape[1], cfg))
+        B, S, k = top_e.shape
+        kept = valid.new_zeros(valid.shape).scatter_(1, order, valid)
+        none = valid.new_zeros((B, S, cfg.n_experts))
+        calls.append((none.scatter(2, top_e, True),
+                      none.scatter(2, top_e, kept.reshape(B, S, k))))
+        return saved(p, x, cfg, **kw)
+    transformer.moe_ffn = rec
+    try:
+        yield calls
+    finally:
+        transformer.moe_ffn = saved
+
+
+def routing_agreement(a, b) -> dict:
+    """The shares of (token, layer) routing decisions of two forwards that
+    agree: the same top-k experts chosen, and the same of them kept."""
+    if len(a) != len(b) or not a:
+        raise AssertionError("the forwards ran different MoE layers")
+    return {name: sum(float((ra[i] == rb[i]).all(-1).float().mean())
+                      for ra, rb in zip(a, b)) / len(a)
+            for i, name in enumerate(("chosen", "kept"))}
+
+
+def expert_load(torch, routes, capacity: int) -> dict:
+    """The assignments an expert gets in a group (one sequence), over every
+    MoE layer and group, against the capacity C of its slots; and the share
+    of all assignments dropped."""
+    n = torch.cat([chosen.sum(1).flatten() for chosen, _ in routes]).float()
+    total = sum(float(chosen.sum()) for chosen, _ in routes)
+    kept = sum(float(k.sum()) for _, k in routes)
+    return {"mean": float(n.mean()), "median": float(n.median()),
+            "p90": float(n.quantile(0.9)), "max": float(n.max()),
+            "capacity": capacity,
+            "over_capacity_share": float((n > capacity).float().mean()),
+            "unused_share": float((n == 0).float().mean()),
+            "drop_share": 1 - kept / total}
+
+
+def logit_gaps(full, plain, plain_b, dec=None) -> dict:
+    """The forward through the kernels (`full`) against the one through the
+    plain versions (`plain`), and the decode logits `dec` against `full`,
+    in units of the noise floor: `plain` against `plain_b`, the plain
+    versions chunked otherwise. Raises where a gap is over its limit, or a
+    token differs where its margin is clear of the gap."""
+    if not (bool(full.isfinite().all())
+            and (dec is None or bool(dec.isfinite().all()))):
+        raise AssertionError("non-finite logits")
+    top = float(full.abs().max())
+    # the noise floor: the plain versions' own summation order, carried
+    # through every layer
+    floor = float((plain - plain_b).abs().max())
+    # the kernels' rounding, carried through every layer
+    kdiff = float((full - plain).abs().max())
+    # the limits in units of the floor (or of a hundredth of the largest
+    # logit, where a small model rounds alike both ways): the kernels may
+    # move the logits half as much again as the plain versions' own order
+    # does, decode twice as much, for its bf16 state
+    unit = max(floor, 0.01 * top)
+
+    def margin(logits, gap):
+        top2 = logits.topk(2, dim=-1).values
+        return ((top2[..., 0] - top2[..., 1]) > 2 * gap).cpu().numpy()
+
+    def same(a, b):
+        return (a.argmax(-1) == b.argmax(-1)).cpu().numpy()
+    kclear, ksame = margin(plain, kdiff), same(full, plain)
+    out = {"max_abs_logit": top, "kernels_vs_plain_max_abs_diff": kdiff,
+           "noise_floor_max_abs_diff": floor,
+           "kernels_clear_share": float(kclear.mean()),
+           "kernels_equal_share": float(ksame.mean()),
+           "floor_equal_share": float(same(plain, plain_b).mean())}
+    if not kdiff <= 1.5 * unit:
+        raise AssertionError(f"logits differ: kernels vs plain {kdiff}, "
+                             f"noise floor {floor} (max |logit| {top})")
+    if not ksame[kclear].all():
+        raise AssertionError("a token of the forward through the kernels "
+                             "differs from the plain one where the margin "
+                             "is clear")
+    if dec is not None:
+        # decode (recurrent Mamba2 step with a bf16 state, softmax over the
+        # cache) and the forward (chunked scan, flash) round at other points
+        diff = float((dec - full).abs().max())
+        clear, dsame = margin(full, diff), same(full, dec)
+        out.update(max_abs_diff=diff, clear_share=float(clear.mean()),
+                   equal_share=float(dsame.mean()))
+        if not diff <= 2 * unit:
+            raise AssertionError(f"logits differ: decode vs forward {diff},"
+                                 f" noise floor {floor} (max |logit| {top})")
+        if not dsame[clear].all():
+            raise AssertionError("a decoded token differs from the "
+                                 "forward's where the margin is clear")
+    return out
+
+
 def run_serve_path(torch, dev, cfg=None, *, batch=4, prompt=512, new=32,
-                   max_seq=1024) -> dict:
-    """`cfg`, a hybrid config (default: zamba2-2.7b at full width), served
-    through `ServeEngine.generate`: the launch counts of the kernels are
-    zeroed just before it and read just after. Then prefill and each decode
-    step are timed apart, with the counts read between them; each kernel's
-    outputs in that prefill are held against its plain version; and the
-    decode logits are held against one teacher-forced forward through the
+                   max_seq=1024, seed=0) -> dict:
+    """`cfg` (default: zamba2-2.7b at full width) served through
+    `ServeEngine.generate`: the launch counts of the kernels are zeroed just
+    before it and read just after. Then prefill and each decode step are
+    timed apart, with the counts read between them; each kernel's outputs
+    in that prefill are held against its plain version; and the decode
+    logits are held against one teacher-forced forward through the
     kernels, that forward against one through the plain versions, and both
     gaps against the noise floor: two forwards through the plain versions
-    that differ only in their chunking. Returns timings, counts and the
-    checks' numbers."""
+    that differ only in their chunking. A vlm gets seeded vision
+    embeddings and its cross blocks' gates at 1.0 (at their init, 0, a
+    cross block is a no-op). An moe config's forwards through the kernels
+    and the plain versions run at its own capacity, where the routing
+    decisions (experts chosen, and kept under capacity) that agree are
+    counted too; its decode check runs on a copy at no-drop capacity
+    (capacity dispatch is not causal: a forward over S tokens drops a hot
+    expert's latest positions, a one-token decode step never drops), with
+    forwards of its own. Returns timings, counts and the checks' numbers."""
     import numpy as np
     from repro_torch.configs.base import get_config
+    from repro_torch.models.moe import _capacity as moe_capacity
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     cfg = cfg or get_config("zamba2-2.7b")
-    if cfg.family != "hybrid":
-        raise ValueError(f"run_serve_path serves a hybrid config, not "
-                         f"{cfg.name} ({cfg.family})")
     kernels = {"flash_attention": fops.flash_attention,
                "ssd_scan": sops.ssd_scan}
-    # per prefill: the shared block after every `shared_attn_interval`
-    # Mamba2 layers, and every Mamba2 layer
-    expect = {"flash_attention": cfg.n_layers // cfg.shared_attn_interval,
-              "ssd_scan": cfg.n_layers}
+    expect = serve_launches(cfg)
 
     def counts():
         return {k: f.launches for k, f in kernels.items()}
@@ -804,24 +984,36 @@ def run_serve_path(torch, dev, cfg=None, *, batch=4, prompt=512, new=32,
             f.launches = 0
 
     t0 = time.perf_counter()
-    params = M.init_params(cfg, 0, device=dev)
+    params = M.init_params(cfg, seed, device=dev)
     n_params = sum(t.numel() for t in M.leaves(params))
     if n_params != cfg.n_params():
         raise AssertionError(f"{n_params} params, expected {cfg.n_params()}")
+    extra = {}
+    if cfg.family == "vlm":
+        for block in params["stack"]["cross"]:
+            block["attn_gate"].fill_(1.0)
+            block["ffn_gate"].fill_(1.0)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 1)
+        extra["vision_embeds"] = torch.randn(
+            (batch, cfg.n_vision_tokens, cfg.d_model), generator=g,
+            device=dev).bfloat16()
     eng = ServeEngine(cfg, params, ServeConfig(max_batch=batch,
                                                max_seq=max_seq,
                                                max_new_tokens=new))
     del params                    # the engine keeps what it reads
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompts = np.random.default_rng(0).integers(
+    prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
-    eng.generate(prompts, new_tokens=2)   # cuBLAS handles and workspaces
+    vision = extra.get("vision_embeds")
+    # cuBLAS handles and workspaces
+    eng.generate(prompts, new_tokens=2, vision_embeds=vision)
 
     zero()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gen = eng.generate(prompts, new_tokens=new)
+    gen = eng.generate(prompts, new_tokens=new, vision_embeds=vision)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
     launches = counts()
@@ -831,8 +1023,22 @@ def run_serve_path(torch, dev, cfg=None, *, batch=4, prompt=512, new=32,
                                          (gen < cfg.padded_vocab)).all():
         raise AssertionError(f"generated tokens out of range: {gen.shape}")
 
+    def decode_steps(dcfg, logits, cache):
+        """The prefill's last logits, then those of each decode step at
+        `dcfg` that feeds the generated tokens one at a time into `cache`
+        (grown to max_seq): [B, new, V]."""
+        steps = [logits[:, -1]]
+        for t in range(new - 1):
+            tok = torch.as_tensor(gen[:, t:t + 1], dtype=torch.int64,
+                                  device=dev)
+            logits, cache = M.decode_step(eng.params, dcfg, tok, cache,
+                                          prompt + t)
+            steps.append(logits[:, -1])
+        return torch.stack(steps, 1)
+
     # prefill and decode apart, their launches, the kernels on the
     # prefill's activations, and the teacher-forced check
+    out = {}
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
         flash_rec = FirstAndLast(fops.flash_attention)
@@ -841,7 +1047,8 @@ def run_serve_path(torch, dev, cfg=None, *, batch=4, prompt=512, new=32,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with routed(flash_rec, scan_rec):
-            logits, cache = eng.prefill(eng.params, {"tokens": tokens})
+            logits, cache = eng.prefill(eng.params, {"tokens": tokens,
+                                                     **extra})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         prefill_launches = counts()
@@ -849,100 +1056,112 @@ def run_serve_path(torch, dev, cfg=None, *, batch=4, prompt=512, new=32,
                                            scan_rec.calls)
         del flash_rec, scan_rec
         cache = eng._grow_cache(cache)
-        steps = [logits[:, -1]]
         zero()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for t in range(new - 1):
-            tok = torch.as_tensor(gen[:, t:t + 1], dtype=torch.int64,
-                                  device=dev)
-            logits, cache = M.decode_step(eng.params, cfg, tok, cache,
-                                          prompt + t)
-            steps.append(logits[:, -1])
+        dec = decode_steps(cfg, logits, cache)
         torch.cuda.synchronize()
         decode_ms = 1e3 * (time.perf_counter() - t0) / max(new - 1, 1)
         decode_launches = counts()
-        dec = torch.stack(steps, 1)
+        del cache
+        if not torch.equal(dec.argmax(-1).cpu(), torch.as_tensor(gen).long()):
+            raise AssertionError("decode logits do not give the generated "
+                                 "tokens")
         seq = torch.as_tensor(np.concatenate([prompts, gen[:, :-1]], 1),
                               dtype=torch.int64, device=dev)
 
-        def forward(q_chunk, kv_chunk, ssd_chunk):
-            out, _ = M.forward(eng.params, cfg, {"tokens": seq},
-                               q_chunk=q_chunk, kv_chunk=kv_chunk,
-                               ssd_chunk=ssd_chunk)
-            return out[:, prompt - 1:]
+        def forward(fcfg, q_chunk, kv_chunk, ssd_chunk):
+            with recording_routes() as routes:
+                logits, _ = M.forward(eng.params, fcfg,
+                                      {"tokens": seq, **extra},
+                                      q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                      ssd_chunk=ssd_chunk)
+            return logits[:, prompt - 1:].clone(), routes
 
-        # the chunks only matter to the plain versions: 3 x 181 or 1 x 543
-        # positions for flash, 128 or 64 for the scan
-        full = forward(256, 256, 128)
-        with routed(plain_flash, plain_scan):
-            plain = forward(256, 256, 128)
-            plain_b = forward(1024, 1024, 64)
+        def forwards(fcfg):
+            """Through the kernels, through the plain versions, and through
+            the plain versions chunked otherwise (the chunks only matter to
+            them: 3 x 181 or 1 x 543 positions for flash, 128 or 64 for
+            the scan)."""
+            runs = [forward(fcfg, 256, 256, 128)]
+            with routed(plain_flash, plain_scan):
+                runs += [forward(fcfg, 256, 256, 128),
+                         forward(fcfg, 1024, 1024, 64)]
+            return runs
+
+        if cfg.family == "moe":
+            # the served path, at the config's own capacity: its prefill's
+            # expert load and drops, and the forwards through the kernels
+            # and the plain versions, logits and routing
+            with recording_routes() as own:
+                eng.prefill(eng.params, {"tokens": tokens})
+            out["expert_load"] = load = expert_load(
+                torch, own, moe_capacity(prompt, cfg))
+            out["prefill_drop_share"] = load["drop_share"]
+            del own
+            (full, routes), (plain, plain_routes), (plain_b, plain_b_routes) \
+                = forwards(cfg)
+            out["own_capacity"] = logit_gaps(full, plain, plain_b)
+            # a bf16 rounding apart in attention can flip a top-k choice or
+            # a capacity drop, and the plain versions' own chunking flips
+            # some too: the kernels may flip half as many again as that
+            # floor, as for the logits
+            out["routing_agreement"] = agree = {
+                "kernels_vs_plain": routing_agreement(routes, plain_routes),
+                "plain_vs_plain": routing_agreement(plain_routes,
+                                                    plain_b_routes)}
+            print(f"{cfg.name}: routing agreement {agree}, expert load "
+                  f"{load}, logits at its own capacity "
+                  f"{out['own_capacity']}")
+            for which in ("chosen", "kept"):
+                if not (1 - agree["kernels_vs_plain"][which]
+                        <= 1.5 * (1 - agree["plain_vs_plain"][which])):
+                    raise AssertionError(
+                        f"routing ({which}): kernels vs plain agree on "
+                        f"{agree['kernels_vs_plain'][which]} of the "
+                        f"decisions, two plain forwards on "
+                        f"{agree['plain_vs_plain'][which]}")
+            del full, plain, plain_b, routes, plain_routes, plain_b_routes
+            # decode against the teacher-forced forward at no-drop
+            # capacity, its own prefill and forwards untimed
+            cfg_nd = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            out["decode_check_capacity_factor"] = cfg_nd.capacity_factor
+            logits, cache = M.prefill(eng.params, cfg_nd, {"tokens": tokens},
+                                      q_chunk=256, kv_chunk=256)
+            dec = decode_steps(cfg_nd, logits, eng._grow_cache(cache))
+            del cache
+            (full, _), (plain, _), (plain_b, _) = forwards(cfg_nd)
+        else:
+            (full, _), (plain, _), (plain_b, _) = forwards(cfg)
+        teacher_forcing = logit_gaps(full, plain, plain_b, dec)
+        del full, plain, plain_b, dec
     if prefill_launches != expect or any(decode_launches.values()):
         raise AssertionError(f"launches: prefill {prefill_launches}, "
                              f"decode {decode_launches}")
-    if not torch.equal(dec.argmax(-1).cpu(), torch.as_tensor(gen).long()):
-        raise AssertionError("decode logits do not give the generated tokens")
-    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
-        raise AssertionError("non-finite logits")
-    top = float(full.abs().max())
-    # the noise floor: the plain versions' own summation order, carried
-    # through every layer
-    floor = float((plain - plain_b).abs().max())
-    # the kernels' rounding, carried through every layer
-    kdiff = float((full - plain).abs().max())
-    # decode (recurrent Mamba2 step with a bf16 state, softmax over the
-    # cache) and the forward (chunked scan, flash) round at other points
-    diff = float((dec - full).abs().max())
-    # the limits in units of the floor (or of a hundredth of the largest
-    # logit, where a small model rounds alike both ways): the kernels may
-    # move the logits half as much again as the plain versions' own order
-    # does, decode twice as much, for its bf16 state
-    unit = max(floor, 0.01 * top)
-    if not (kdiff <= 1.5 * unit and diff <= 2 * unit):
-        raise AssertionError(f"logits differ: decode vs forward {diff}, "
-                             f"kernels vs plain {kdiff}, noise floor "
-                             f"{floor} (max |logit| {top})")
-
-    def margin(logits, gap):
-        top2 = logits.topk(2, dim=-1).values
-        return ((top2[..., 0] - top2[..., 1]) > 2 * gap).cpu().numpy()
-
-    clear = margin(full, diff)
-    same = full.argmax(-1).cpu().numpy() == gen
-    if not same[clear].all():
-        raise AssertionError("a decoded token differs from the forward's "
-                             "where the margin is clear")
-    kclear = margin(plain, kdiff)
-    ksame = (full.argmax(-1) == plain.argmax(-1)).cpu().numpy()
-    if not ksame[kclear].all():
-        raise AssertionError("a token of the forward through the kernels "
-                             "differs from the plain one where the margin "
-                             "is clear")
-    profile = profile_serve(torch, eng, cfg, tokens, gen)
-    return {"arch": cfg.name, "n_params": n_params, "init_s": init_s,
+    profile = profile_serve(torch, eng, cfg, tokens, gen, extra)
+    return {"arch": cfg.name, "n_params": n_params,
+            "param_dtype": cfg.param_dtype, "n_layers": cfg.n_layers,
+            "init_s": init_s,
             "generate_s": generate_s, "prefill_s": prefill_s,
             "prompt_tokens_per_s": batch * prompt / prefill_s,
             "decode_ms_per_step": decode_ms, "launches": launches,
             "prefill_launches": prefill_launches,
             "decode_launches": decode_launches,
             "kernels_on_activations": activations,
-            "teacher_forcing": {"max_abs_diff": diff, "max_abs_logit": top,
-                                "kernels_vs_plain_max_abs_diff": kdiff,
-                                "noise_floor_max_abs_diff": floor,
-                                "clear_share": float(clear.mean()),
-                                "equal_share": float(same.mean()),
-                                "kernels_clear_share": float(kclear.mean()),
-                                "kernels_equal_share": float(ksame.mean())},
+            "teacher_forcing": teacher_forcing,
+            **out,
             "profile": profile,
             "shape": f"batch {batch}, prompt {prompt}, {new} new tokens, "
                      f"max_seq {max_seq}"}
 
 
-def profile_serve(torch, eng, cfg, tokens, gen, n_decode: int = 4) -> dict:
+def profile_serve(torch, eng, cfg, tokens, gen, extra, n_decode: int = 4
+                  ) -> dict:
     """Where the serving path's device time goes: device time by kernel
     (device activity only) over one prefill, and over `n_decode` decode
-    steps, each against its profiled wall time."""
+    steps, each against its profiled wall time. `extra`: the prefill
+    batch's other inputs (a vlm's vision embeddings)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import model as M
     Sp = tokens.shape[1]
@@ -951,7 +1170,7 @@ def profile_serve(torch, eng, cfg, tokens, gen, n_decode: int = 4) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            _, cache = eng.prefill(eng.params, {"tokens": tokens})
+            _, cache = eng.prefill(eng.params, {"tokens": tokens, **extra})
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         out["prefill"] = _profile_rows(prof, wall, 1)
@@ -1057,27 +1276,45 @@ def main() -> int:
     print(json.dumps({"step_profile": profile_steps(torch, dev)}))
     torch.cuda.empty_cache()
 
-    # the serving path: zamba2-2.7b at full width
+    # the serving paths: zamba2-2.7b, deepseek-moe-16b and
+    # llama-3.2-vision-90b at full width, each with the counts zeroed just
+    # before its generate() and read just after
     t0 = time.perf_counter()
-    lm_kernels = [check_flash_attention(torch, dev), check_ssd_scan(torch, dev)]
+    flash_row, flash_rows = check_flash_attention(torch, dev)
+    lm_kernels = [flash_row, check_ssd_scan(torch, dev)]
+    for k in flash_rows[1:]:
+        print_kernel(k)
     for k in lm_kernels:
         print_kernel(k)
+    print(json.dumps({"flash_serve_shapes": flash_rows}))
     kernels += lm_kernels
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    serve = run_serve_path(torch, dev)
-    serve_launches = serve["launches"]      # generate()'s, zeroed before it
-    serve["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    serve["phase_s"] = time.perf_counter() - t0
-    print(json.dumps({"serve": serve}))
-    print(f"serve path ({serve['arch']}, {serve['n_params']} params): "
-          f"prefill {serve['prefill_s']:.3f} s "
-          f"({serve['prompt_tokens_per_s']:.0f} prompt tokens/s), decode "
-          f"{serve['decode_ms_per_step']:.2f} ms/step, peak "
-          f"{serve['peak_memory_gib']:.2f} GiB, teacher forcing "
-          f"{serve['teacher_forcing']}")
+    print(f"LM kernel checks: {time.perf_counter() - t0:.1f} s")
+    serve_launches_by_path = {}
+    for arch in ("zamba2-2.7b", "deepseek-moe-16b", "llama-3.2-vision-90b"):
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        serve = run_serve_path(torch, dev, serve_config(arch))
+        # generate()'s launches, zeroed just before it
+        serve_launches_by_path[arch] = serve["launches"]
+        serve["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        serve["phase_s"] = time.perf_counter() - t0
+        print(json.dumps({"serve": serve}))
+        print(f"serve path ({serve['arch']}, {serve['n_layers']} layers, "
+              f"{serve['n_params']} params in {serve['param_dtype']}): "
+              f"prefill {serve['prefill_s']:.3f} s "
+              f"({serve['prompt_tokens_per_s']:.0f} prompt tokens/s), decode "
+              f"{serve['decode_ms_per_step']:.2f} ms/step, peak "
+              f"{serve['peak_memory_gib']:.2f} GiB, phase "
+              f"{serve['phase_s']:.1f} s, teacher forcing "
+              f"{serve['teacher_forcing']}, routing "
+              f"{serve.get('routing_agreement')}, prefill drop share "
+              f"{serve.get('prefill_drop_share')}")
+    print(json.dumps({"serve_launches": serve_launches_by_path}))
+    serve_launches = {k: sum(v[k] for v in serve_launches_by_path.values())
+                      for k in ("flash_attention", "ssd_scan")}
 
     on_path = {"deposit_cic": launches, "byte_shuffle_blocks": launches,
                "flash_attention": serve_launches, "ssd_scan": serve_launches}

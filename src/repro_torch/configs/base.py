@@ -86,6 +86,12 @@ class ModelConfig:
         from repro_torch.models.model import count_params_analytic
         return count_params_analytic(self)
 
+    def n_active_params(self) -> int:
+        """Parameters a token uses: the routed experts count top_k of
+        n_experts."""
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self, active_only=True)
+
 
 _REGISTRY: dict[str, ModelConfig] = {}
 

@@ -1,5 +1,6 @@
 """Serving launcher: random params (seed 0) and batched greedy generation
-through `ServeEngine`, on the CUDA device unless `--device cpu`.
+through `ServeEngine`, on the CUDA device unless `--device cpu`. Any
+config but a vlm's (whose image tokens this launcher has no way to make).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --batch 4 --prompt-len 512 --new-tokens 32 --max-seq 1024
@@ -35,8 +36,13 @@ def main(argv=None):
         raise NotImplementedError(
             "--ckpt-dir needs ckpt/manager.py, which is not ported yet "
             "(ROADMAP.md Queue 1, item 3)")
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.family == "vlm":
+        raise ValueError(
+            f"{cfg.name} is a vlm: its vision tower is a stub and this "
+            f"launcher has no vision embeddings to give it; call "
+            f"ServeEngine.generate(prompts, vision_embeds=...) instead")
+    dev = resolve_device(args.device)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
     params = M.init_params(cfg, 0, device=dev)

@@ -1,7 +1,8 @@
 """Carry parameters and caches between the JAX package and the port, as
-numpy arrays: the JAX package's parameter pytree (stacked `layers [L, ...]`
-and `units [U, I, ...]`) becomes the port's nested dicts with per-layer
-lists, and a decode cache of either package becomes numpy for comparison.
+numpy arrays: the JAX package's parameter pytree (stacked `layers [L, ...]`,
+`units [U, I, ...]` and the like) becomes the port's nested dicts with
+per-layer lists, and a decode cache of either package becomes numpy for
+comparison.
 """
 from __future__ import annotations
 
@@ -11,8 +12,10 @@ import torch
 from repro_torch._device import resolve_device
 
 #: keys whose leaves carry stacked layers: the number of leading axes that
-#: are unstacked into (nested) lists
-_STACKED = {"layers": 1, "units": 2}
+#: are unstacked into (nested) lists (`first`: the moe family's dense first
+#: layers; `self_units` and `cross`: the vlm family's [U, I-1] self layers
+#: and [U] cross layers)
+_STACKED = {"layers": 1, "units": 2, "first": 1, "self_units": 2, "cross": 1}
 
 
 def _tensor(a, dev) -> torch.Tensor:

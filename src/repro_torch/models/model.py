@@ -13,8 +13,8 @@ import math
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.models.layers import (embed, init_embedding, init_rmsnorm,
-                                       rms_norm, unembed)
+from repro_torch.models.layers import (COMPUTE_DTYPE, embed, init_embedding,
+                                       init_rmsnorm, rms_norm, unembed)
 from repro_torch.models.transformer import stack_for
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -67,9 +67,18 @@ def param_shapes(cfg):
     return _init(cfg, None, torch.device("meta"))
 
 
-def count_params_analytic(cfg) -> int:
-    """Parameter count by shape arithmetic."""
-    return sum(math.prod(t.shape) for t in leaves(param_shapes(cfg)))
+def count_params_analytic(cfg, active_only: bool = False) -> int:
+    """Parameter count by shape arithmetic; with `active_only`, the routed
+    experts count top_k / n_experts of their size (the JAX package's
+    rounding: the experts' total times top_k, floor-divided by
+    n_experts)."""
+    shapes = param_shapes(cfg)
+    total = sum(math.prod(t.shape) for t in leaves(shapes))
+    if active_only and cfg.n_experts:
+        esz = sum(math.prod(t.shape) for layer in shapes["stack"]["layers"]
+                  for t in leaves(layer["moe"]["experts"]))
+        total = total - esz + esz * cfg.top_k // cfg.n_experts
+    return total
 
 
 # ---------------------------------------------------------------- forward
@@ -89,12 +98,15 @@ def _head(params, cfg):
 
 def forward(params, cfg, batch, *, with_cache=False, q_chunk=1024,
             kv_chunk=1024, ssd_chunk=128):
-    """batch: {tokens, positions?}. Causal full-sequence pass;
-    logits are fp32 [B,S,V]."""
+    """batch: {tokens, positions?, vision_embeds? [B,Tv,d] (vlm)}. Causal
+    full-sequence pass; logits are fp32 [B,S,V]."""
     x, positions = _embed_inputs(params, cfg, batch)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["vision_embeds"] = batch["vision_embeds"].to(COMPUTE_DTYPE)
     x, aux, cache = stack_for(cfg).seq(
         params["stack"], x, cfg, positions=positions, with_cache=with_cache,
-        q_chunk=q_chunk, kv_chunk=kv_chunk, ssd_chunk=ssd_chunk)
+        q_chunk=q_chunk, kv_chunk=kv_chunk, ssd_chunk=ssd_chunk, **kw)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(_head(params, cfg), x)
     return (logits, aux, cache) if with_cache else (logits, aux)

@@ -1,5 +1,6 @@
 """Per-family layer stacks: the port of the JAX package's
-`models/transformer.py` for the dense (and audio), ssm and hybrid families.
+`models/transformer.py` for every family (dense and audio, moe, ssm,
+hybrid, vlm).
 
 Every family exposes:
   init(gen, cfg, device)                   -> params: per-layer dicts in lists
@@ -10,9 +11,6 @@ The JAX package scans over stacked params; here the layers are a Python
 loop over lists (`params_from_numpy` unstacks), while the decode cache keeps
 the JAX package's stacked layout ([L, ...] or [U, I, ...]), so the two
 caches compare leaf by leaf. Decode writes the cache in place.
-
-`MoeStack` and `VlmStack` wait for `models/moe.py` and the cross-attention
-block (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -22,9 +20,11 @@ import torch
 
 from repro_torch.models import ssm
 from repro_torch.models.attention import (attention_block, decode_attention,
+                                          decode_cross_attention,
                                           init_attention)
 from repro_torch.models.layers import (COMPUTE_DTYPE, init_rmsnorm,
                                        init_swiglu, rms_norm, swiglu)
+from repro_torch.models.moe import init_moe, moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +61,37 @@ def dense_block_step(p, x, ck, cv, cache_len, cfg):
     x = x + h
     x = x + swiglu(p["ffn"], rms_norm(p["ffn_norm"], x, cfg.norm_eps))
     return x, ck, cv
+
+
+# ================================================================= moe block
+def init_moe_block(gen, cfg, *, device, dtype=torch.float32):
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "attn_norm": init_rmsnorm(cfg.d_model, **kw),
+        "attn": init_attention(gen, cfg, **kw),
+        "ffn_norm": init_rmsnorm(cfg.d_model, **kw),
+        "moe": init_moe(gen, cfg, **kw),
+    }
+
+
+def moe_block_seq(p, x, cfg, positions, q_chunk, kv_chunk):
+    h, kv = attention_block(p["attn"],
+                            rms_norm(p["attn_norm"], x, cfg.norm_eps),
+                            cfg=cfg, positions=positions,
+                            q_chunk=q_chunk, kv_chunk=kv_chunk)
+    x = x + h
+    y, aux = moe_ffn(p["moe"], rms_norm(p["ffn_norm"], x, cfg.norm_eps), cfg)
+    return x + y, kv, aux
+
+
+def moe_block_step(p, x, ck, cv, cache_len, cfg):
+    h, ck, cv = decode_attention(p["attn"],
+                                 rms_norm(p["attn_norm"], x, cfg.norm_eps),
+                                 ck, cv, cache_len, cfg=cfg)
+    x = x + h
+    y, _ = moe_ffn(p["moe"], rms_norm(p["ffn_norm"], x, cfg.norm_eps), cfg,
+                   return_aux=False)
+    return x + y, ck, cv
 
 
 # ================================================================ ssm block
@@ -116,6 +147,11 @@ def _kv_cache_spec(lead, cfg, B, S):
             "v": TensorSpec(shape, COMPUTE_DTYPE)}
 
 
+def _stack_kv(ks, vs):
+    return {"k": torch.stack(ks).to(COMPUTE_DTYPE),
+            "v": torch.stack(vs).to(COMPUTE_DTYPE)}
+
+
 def _zero_aux(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -140,11 +176,7 @@ class DenseStack:
             if with_cache:
                 ks.append(k)
                 vs.append(v)
-        cache = None
-        if with_cache:
-            cache = {"k": torch.stack(ks).to(COMPUTE_DTYPE),
-                     "v": torch.stack(vs).to(COMPUTE_DTYPE)}
-        return x, _zero_aux(x), cache
+        return x, _zero_aux(x), _stack_kv(ks, vs) if with_cache else None
 
     @staticmethod
     def step(p, x, cache, cache_len, cfg, **_):
@@ -156,6 +188,66 @@ class DenseStack:
     @staticmethod
     def cache_spec(cfg, B, S):
         return _kv_cache_spec((cfg.n_layers,), cfg, B, S)
+
+
+# ===========================================================================
+# Family: moe  (optional dense first layers — deepseek-moe)
+# ===========================================================================
+class MoeStack:
+    @staticmethod
+    def init(gen, cfg, *, device, dtype=torch.float32):
+        n_moe = cfg.n_layers - cfg.first_dense_layers
+        p = {"layers": [init_moe_block(gen, cfg, device=device, dtype=dtype)
+                        for _ in range(n_moe)]}
+        if cfg.first_dense_layers:
+            p["first"] = [init_dense_block(gen, cfg, device=device,
+                                           d_ff=cfg.dense_d_ff, dtype=dtype)
+                          for _ in range(cfg.first_dense_layers)]
+        return p
+
+    @staticmethod
+    def seq(p, x, cfg, *, positions, with_cache=False, q_chunk=1024,
+            kv_chunk=1024, **_):
+        first, moe = ([], []), ([], [])
+        for layer_p in p.get("first", ()):
+            x, kv = dense_block_seq(layer_p, x, cfg, positions, q_chunk,
+                                    kv_chunk)
+            if with_cache:
+                first[0].append(kv[0])
+                first[1].append(kv[1])
+        aux = _zero_aux(x)
+        for layer_p in p["layers"]:
+            x, kv, a = moe_block_seq(layer_p, x, cfg, positions, q_chunk,
+                                     kv_chunk)
+            aux = aux + a
+            if with_cache:
+                moe[0].append(kv[0])
+                moe[1].append(kv[1])
+        cache = None
+        if with_cache:
+            cache = {"moe": _stack_kv(*moe)}
+            if first[0]:
+                cache["first"] = _stack_kv(*first)
+        return x, aux, cache
+
+    @staticmethod
+    def step(p, x, cache, cache_len, cfg, **_):
+        for i, layer_p in enumerate(p.get("first", ())):
+            x, _, _ = dense_block_step(layer_p, x, cache["first"]["k"][i],
+                                       cache["first"]["v"][i], cache_len, cfg)
+        for i, layer_p in enumerate(p["layers"]):
+            x, _, _ = moe_block_step(layer_p, x, cache["moe"]["k"][i],
+                                     cache["moe"]["v"][i], cache_len, cfg)
+        return x, cache
+
+    @staticmethod
+    def cache_spec(cfg, B, S):
+        spec = {"moe": _kv_cache_spec(
+            (cfg.n_layers - cfg.first_dense_layers,), cfg, B, S)}
+        if cfg.first_dense_layers:
+            spec["first"] = _kv_cache_spec((cfg.first_dense_layers,), cfg, B,
+                                           S)
+        return spec
 
 
 # ===========================================================================
@@ -228,8 +320,7 @@ class HybridStack:
             cache = {"ssm": torch.stack([u["ssm"] for u in units]),
                      "conv": tuple(torch.stack([u["conv"][j] for u in units])
                                    for j in range(3)),
-                     "k": torch.stack(ks).to(COMPUTE_DTYPE),
-                     "v": torch.stack(vs).to(COMPUTE_DTYPE)}
+                     **_stack_kv(ks, vs)}
         return x, _zero_aux(x), cache
 
     @staticmethod
@@ -250,27 +341,118 @@ class HybridStack:
                 **_kv_cache_spec((U,), cfg, B, S)}
 
 
+# ===========================================================================
+# Family: vlm (llama-3.2-vision) — units of (interval-1) self layers + 1
+# cross-attention layer over precomputed vision-patch embeddings.
+# ===========================================================================
+def init_cross_block(gen, cfg, *, device, dtype=torch.float32):
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "cross_norm": init_rmsnorm(cfg.d_model, **kw),
+        "cross_attn": init_attention(gen, cfg, **kw),
+        "attn_gate": torch.zeros((1,), **kw),
+        "ffn_norm": init_rmsnorm(cfg.d_model, **kw),
+        "ffn": init_swiglu(gen, cfg.d_model, cfg.d_ff, **kw),
+        "ffn_gate": torch.zeros((1,), **kw),
+    }
+
+
+def _gated(gate, h):
+    """tanh(gate) in fp32, rounded to bf16, times h (bf16)."""
+    return torch.tanh(gate.float()).to(COMPUTE_DTYPE) * h
+
+
+def cross_block_seq(p, x, vision, cfg, positions):
+    """Cross-attention over `vision` [B,Tv,d] (no RoPE, no mask), then the
+    gated FFN. The plain version's chunks are the JAX package's own."""
+    zeros = torch.zeros(vision.shape[:2], dtype=torch.int32,
+                        device=vision.device)
+    h, kv = attention_block(p["cross_attn"],
+                            rms_norm(p["cross_norm"], x, cfg.norm_eps),
+                            cfg=cfg, positions=positions, kv_x=vision,
+                            kv_positions=zeros, causal=False, rope=False,
+                            q_chunk=1024, kv_chunk=min(1024, vision.shape[1]))
+    x = x + _gated(p["attn_gate"], h)
+    f = swiglu(p["ffn"], rms_norm(p["ffn_norm"], x, cfg.norm_eps))
+    return x + _gated(p["ffn_gate"], f), kv
+
+
+def cross_block_step(p, x, cross_k, cross_v, cfg):
+    h = decode_cross_attention(p["cross_attn"],
+                               rms_norm(p["cross_norm"], x, cfg.norm_eps),
+                               cross_k, cross_v, cfg=cfg)
+    x = x + _gated(p["attn_gate"], h)
+    f = swiglu(p["ffn"], rms_norm(p["ffn_norm"], x, cfg.norm_eps))
+    return x + _gated(p["ffn_gate"], f)
+
+
+class VlmStack:
+    @staticmethod
+    def init(gen, cfg, *, device, dtype=torch.float32):
+        I = cfg.cross_attn_interval
+        U = cfg.n_layers // I
+        units = [[init_dense_block(gen, cfg, device=device, dtype=dtype)
+                  for _ in range(I - 1)] for _ in range(U)]
+        cross = [init_cross_block(gen, cfg, device=device, dtype=dtype)
+                 for _ in range(U)]
+        return {"self_units": units, "cross": cross}      # [U][I-1], [U]
+
+    @staticmethod
+    def seq(p, x, cfg, *, positions, vision_embeds, with_cache=False,
+            q_chunk=1024, kv_chunk=1024, **_):
+        ks, vs, cks, cvs = [], [], [], []
+        for unit_p, cross_p in zip(p["self_units"], p["cross"]):
+            for lp in unit_p:
+                x, (k, v) = dense_block_seq(lp, x, cfg, positions, q_chunk,
+                                            kv_chunk)
+                if with_cache:
+                    ks.append(k)
+                    vs.append(v)
+            x, (ck, cv) = cross_block_seq(cross_p, x, vision_embeds, cfg,
+                                          positions)
+            if with_cache:
+                cks.append(ck)
+                cvs.append(cv)
+        cache = None
+        if with_cache:
+            U = len(p["cross"])
+            self_kv = _stack_kv(ks, vs)
+            cross = _stack_kv(cks, cvs)
+            cache = {k: t.reshape(U, -1, *t.shape[1:])
+                     for k, t in self_kv.items()}
+            cache.update(cross_k=cross["k"], cross_v=cross["v"])
+        return x, _zero_aux(x), cache
+
+    @staticmethod
+    def step(p, x, cache, cache_len, cfg, **_):
+        for u, (unit_p, cross_p) in enumerate(zip(p["self_units"],
+                                                  p["cross"])):
+            for i, lp in enumerate(unit_p):
+                x, _, _ = dense_block_step(lp, x, cache["k"][u, i],
+                                           cache["v"][u, i], cache_len, cfg)
+            x = cross_block_step(cross_p, x, cache["cross_k"][u],
+                                 cache["cross_v"][u], cfg)
+        return x, cache
+
+    @staticmethod
+    def cache_spec(cfg, B, S):
+        I = cfg.cross_attn_interval
+        U = cfg.n_layers // I
+        cross = _kv_cache_spec((U,), cfg, B, cfg.n_vision_tokens)
+        return {**_kv_cache_spec((U, I - 1), cfg, B, S),
+                "cross_k": cross["k"], "cross_v": cross["v"]}
+
+
 STACKS = {
     "dense": DenseStack,
     "audio": DenseStack,
+    "moe": MoeStack,
     "ssm": SsmStack,
     "hybrid": HybridStack,
-}
-
-#: families whose stack is not ported yet, and the ROADMAP.md item that
-#: ports each
-NOT_PORTED = {
-    "moe": "ROADMAP.md Queue 1, item 1 (models/moe.py and MoeStack)",
-    "vlm": "ROADMAP.md Queue 1, item 2 (VlmStack and the cross-attention "
-           "block)",
+    "vlm": VlmStack,
 }
 
 
 def stack_for(cfg):
-    """The stack class of `cfg.family`; raises NotImplementedError for a
-    family that is not ported yet."""
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to PyTorch "
-            f"yet: {NOT_PORTED[cfg.family]}")
+    """The stack class of `cfg.family`."""
     return STACKS[cfg.family]

@@ -5,6 +5,8 @@ only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -99,6 +101,17 @@ def test_shuffle_blocks_kernel_is_bit_exact(cuda_device, itemsize, n_bytes,
 FLASH_TOL = 3e-2
 
 
+def flash_err(got, ref):
+    """max |got - ref| over its limit: two bf16 ulps of max |ref|, and
+    never more than FLASH_TOL (grown above values of 4 as an ulp does).
+    An output that averages many keys is small, so a limit fixed for
+    values up to 4 would let a wrong kernel through."""
+    err = float((got.float() - ref.float()).abs().max())
+    top = float(ref.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(max(top, 2.0 ** -126))) - 7)
+    return err / min(FLASH_TOL * max(1.0, top / 4), 2 * ulp)
+
+
 @pytest.mark.parametrize("D", [32, 64, 80, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", [256, 200])
@@ -116,8 +129,8 @@ def test_flash_kernel_matches_plain_version(cuda_device, D, causal, S):
     ref = reference_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, D)
-    assert float((got.float() - plain.float()).abs().max()) < FLASH_TOL
-    assert float((got.float() - ref.float()).abs().max()) < FLASH_TOL
+    assert flash_err(got, plain) <= 1
+    assert flash_err(got, ref) <= 1
 
 
 def _flash_against_plain(dev, B, Sq, Skv, H, D, causal, seed):
@@ -132,14 +145,14 @@ def _flash_against_plain(dev, B, Sq, Skv, H, D, causal, seed):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, D)
     assert torch.isfinite(got.float()).all()
-    return float((got.float() - plain.float()).abs().max())
+    return flash_err(got, plain)
 
 
 @pytest.mark.parametrize("D", [32, 64, 80, 128])
 @pytest.mark.parametrize("S", [1, 65, 200, 512])
 def test_flash_kernel_at_one_ragged_and_full_tiles(cuda_device, D, S):
     assert _flash_against_plain(cuda_device, 2, S, S, 3, D, True,
-                                D + S) < FLASH_TOL
+                                D + S) <= 1
 
 
 @pytest.mark.parametrize("D", [32, 64, 80, 128])
@@ -149,7 +162,17 @@ def test_flash_kernel_at_one_ragged_and_full_tiles(cuda_device, D, S):
 def test_flash_kernel_with_other_key_lengths(cuda_device, D, Sq, Skv,
                                              causal):
     assert _flash_against_plain(cuda_device, 2, Sq, Skv, 3, D, causal,
-                                D + Sq + Skv) < FLASH_TOL
+                                D + Sq + Skv) <= 1
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,causal", [
+    (4, 512, 512, 16, True),       # deepseek-moe-16b's attention
+    (4, 512, 512, 64, True),       # llama-3.2-vision-90b's self layers
+    (4, 512, 1600, 64, False)])    # its cross layers over 1600 image tokens
+def test_flash_kernel_at_the_moe_and_vlm_serving_shapes(cuda_device, B, Sq,
+                                                        Skv, H, causal):
+    assert _flash_against_plain(cuda_device, B, Sq, Skv, H, 128, causal,
+                                H + Skv) <= 1
 
 
 def test_flash_kernel_reads_strided_inputs_and_rejects_others(cuda_device):
@@ -162,7 +185,7 @@ def test_flash_kernel_reads_strided_inputs_and_rejects_others(cuda_device):
     got = fops.flash_attention(q, k, v)
     plain = flash_attention_plain(q.contiguous(), k.contiguous(),
                                   v.contiguous())
-    assert float((got.float() - plain.float()).abs().max()) < FLASH_TOL
+    assert flash_err(got, plain) <= 1
     with pytest.raises(TypeError):
         fops.flash_attention(q.float(), k.float(), v.float())
     with pytest.raises(ValueError, match="head_dim"):
@@ -377,3 +400,127 @@ def test_deposit_kernel_conserves_charge_at_the_paper_grid(cuda_device):
                                             17)
     assert dops.deposit.last_path == "cluster"
     _assert_deposit(got, ref, tw, ta, dx)
+
+
+# ------------------------------------------------- moe and cross blocks
+def _block_case(name, seed):
+    """A smoke config's params and a bf16 input on the CPU (head_dim 32,
+    which the kernel takes); vlm gates at 1.0 and no-drop MoE capacity."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.models import model as M
+    cfg = reduce_for_smoke(get_config(name))
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    params = M.init_params(cfg, seed, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((2, 96, cfg.d_model), generator=g).bfloat16()
+    pos = torch.arange(96, dtype=torch.int32)[None].expand(2, 96)
+    return cfg, params, x, pos
+
+
+def _on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _ulps(got, ref):
+    """max |got - ref| in bf16 ulps of max |ref|."""
+    return float((got.float().cpu() - ref.float()).abs().max()
+                 / (ref.float().abs().max() * 2.0 ** -7))
+
+
+def test_moe_block_on_the_card_matches_the_cpu(cuda_device):
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import attention_block
+    from repro_torch.models.layers import rms_norm
+    cfg, params, x, pos = _block_case("deepseek-moe-16b", 11)
+    lp = params["stack"]["layers"][0]
+    glp, gx, gpos = _on(lp, cuda_device), x.to(cuda_device), pos.to(
+        cuda_device)
+    before = fops.flash_attention.launches
+    y, (k, v), aux = T.moe_block_seq(glp, gx, cfg, gpos, 32, 32)
+    assert fops.flash_attention.launches == before + 1
+    ry, (rk, rv), raux = T.moe_block_seq(lp, x, cfg, pos, 32, 32)
+    assert _ulps(k, rk) <= 1 and _ulps(v, rv) <= 1
+    # the kernel's attention rounds apart from the plain version's by a
+    # bf16 ulp here and there; where that moves a token's top-k choice its
+    # MoE output differs outright, so such tokens are counted, not compared
+    def top_e(p, x, pos):
+        h, _ = attention_block(p["attn"], rms_norm(p["attn_norm"], x,
+                                                   cfg.norm_eps),
+                               cfg=cfg, positions=pos, q_chunk=32,
+                               kv_chunk=32)
+        return moe.route(p["moe"], rms_norm(p["ffn_norm"], x + h,
+                                            cfg.norm_eps), cfg)[2]
+    same = (top_e(glp, gx, gpos).cpu() == top_e(lp, x, pos)).all(-1)
+    assert float(same.float().mean()) >= 15 / 16
+    assert _ulps(y.cpu()[same], ry[same]) <= 4
+    assert abs(float(aux) - float(raux)) < 1e-2 * float(raux)
+    # the MoE FFN alone on one input: the same routing and drops on both
+    h = torch.randn((2, 96, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(3)).bfloat16()
+    mp, gmp = lp["moe"], glp["moe"]
+    te, re = moe.route(gmp, h.to(cuda_device), cfg)[2], moe.route(mp, h,
+                                                                   cfg)[2]
+    assert torch.equal(te.cpu(), re)
+    gy, _ = moe.moe_ffn(gmp, h.to(cuda_device), cfg)
+    ry, _ = moe.moe_ffn(mp, h, cfg)
+    assert _ulps(gy, ry) <= 2
+
+
+def test_moe_ffn_with_capacity_drops_on_the_card_matches_the_cpu(
+        cuda_device):
+    # as tests/test_torch_moe.py's drop case: C = 8 slots an expert for 128
+    # assignments a group over 8 experts, so dispatch sends drops to the
+    # overflow row and gathers its zeros back
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import moe
+    cfg = ModelConfig(name="m", family="moe", n_layers=1, d_model=64,
+                      n_heads=2, n_kv_heads=2, d_ff=128, vocab_size=64,
+                      n_experts=8, top_k=2, capacity_factor=0.25,
+                      n_shared_experts=1)
+    p = moe.init_moe(torch.Generator().manual_seed(21), cfg,
+                     device=torch.device("cpu"))
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(22)).bfloat16()
+    gp, gx = _on(p, cuda_device), x.to(cuda_device)
+    C = moe._capacity(64, cfg)
+    probs, _, te = moe.route(gp, gx, cfg)
+    _, _, re = moe.route(p, x, cfg)
+    s = probs.sort(-1, descending=True).values
+    gap = float((s[..., 1] - s[..., 2]).min())
+    assert torch.equal(te.cpu(), re), f"smallest k-th gap {gap:.3g}"
+    gv, rv = moe.dispatch(te, 8, C)[2], moe.dispatch(re, 8, C)[2]
+    assert torch.equal(gv.cpu(), rv) and int((~rv).sum()) > 0
+    gy, gaux = moe.moe_ffn(gp, gx, cfg)
+    ry, raux = moe.moe_ffn(p, x, cfg)
+    assert _ulps(gy, ry) <= 2
+    assert abs(float(gaux) - float(raux)) <= 1e-5 * float(raux)
+
+
+def test_cross_block_on_the_card_matches_the_cpu(cuda_device):
+    from repro_torch.models import transformer as T
+    cfg, params, x, pos = _block_case("llama-3.2-vision-90b", 12)
+    cp = params["stack"]["cross"][0]
+    cp["attn_gate"] = torch.ones_like(cp["attn_gate"])
+    cp["ffn_gate"] = torch.ones_like(cp["ffn_gate"])
+    vision = torch.randn((2, 160, cfg.d_model), generator=torch.Generator()
+                         .manual_seed(5)).bfloat16()
+    before = fops.flash_attention.launches
+    y, (k, v) = T.cross_block_seq(_on(cp, cuda_device), x.to(cuda_device),
+                                  vision.to(cuda_device), cfg,
+                                  pos.to(cuda_device))
+    assert fops.flash_attention.launches == before + 1
+    ry, (rk, rv) = T.cross_block_seq(cp, x, vision, cfg, pos)
+    assert _ulps(k, rk) <= 1 and _ulps(v, rv) <= 1
+    assert _ulps(y, ry) <= 4
+    u = x[:, :1]
+    gy = T.cross_block_step(_on(cp, cuda_device), u.to(cuda_device), k, v,
+                            cfg)
+    ry = T.cross_block_step(cp, u, rk, rv, cfg)
+    assert _ulps(gy, ry) <= 4
+

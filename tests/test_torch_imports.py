@@ -43,6 +43,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     assert "repro_torch.ckpt.checkpoint" in res["modules"]
     assert "repro_torch.core.compression" in res["modules"]
     for name in ("configs.base", "models.model", "models.convert",
+                 "models.moe", "models.transformer",
                  "kernels.flash_attention.ops", "kernels.ssd_scan.ops",
                  "serve.engine", "launch.serve"):
         assert f"repro_torch.{name}" in res["modules"]

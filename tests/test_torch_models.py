@@ -1,7 +1,8 @@
 """Port LM modules (`repro_torch.models`) against the JAX package on the
-same numpy inputs: layers, the attention and Mamba2 blocks with JAX's
+same numpy inputs: layers, the attention (self and cross) and Mamba2 blocks with JAX's
 weights carried across by `params_from_numpy`, and the port's parameter
-counter. The flash and SSD plain versions are held against JAX in
+counters. The MoE FFN and block are held against JAX in
+tests/test_torch_moe.py. The flash and SSD plain versions are held against JAX in
 tests/test_torch_kernels.py.
 
 JAX runs eagerly here, with its default flags. Tolerances are stated at
@@ -23,14 +24,19 @@ from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import model as JM
 from repro.models import ssm as JS
+from repro.models import transformer as JT
 from repro_torch.configs.base import get_config, reduce_for_smoke
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import ssm as S
+from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_numpy
 
 BF16_ULP = 2.0 ** -7
+ALL_CONFIGS = ["arctic-480b", "deepseek-moe-16b", "llama-3.2-vision-90b",
+               "mamba2-2.7b", "musicgen-large", "phi3-mini-3.8b",
+               "qwen1.5-0.5b", "qwen3-4b", "smollm-360m", "zamba2-2.7b"]
 
 
 @pytest.fixture(autouse=True)
@@ -168,16 +174,65 @@ def test_mamba2_blocks_match_jax():
         assert_ulps(a, b)
 
 
+# -------------------------------------------------------- cross-attention
+def _vlm_smoke_with_open_gates():
+    """llama-3.2-vision-90b's smoke reduction, with the cross blocks' tanh
+    gates at 1.0 on both sides (they initialise at 0, which makes a cross
+    block a no-op)."""
+    jcfg, cfg, jp, tp = _smoke("llama-3.2-vision-90b")
+    for name in ("attn_gate", "ffn_gate"):
+        jp["stack"]["cross"][name] = jnp.ones_like(jp["stack"]["cross"][name])
+        for block in tp["stack"]["cross"]:
+            block[name] = torch.ones_like(block[name])
+    return jcfg, cfg, jp, tp
+
+
+def test_cross_attention_matches_jax():
+    jcfg, cfg, jp, tp = _vlm_smoke_with_open_gates()
+    ja = jax.tree_util.tree_map(lambda a: a[1], jp["stack"]["cross"])
+    tb = tp["stack"]["cross"][1]
+    rng = np.random.default_rng(3)
+    Sq, Tv = 24, cfg.n_vision_tokens
+    xj, xt = bf16_pair(rng.normal(size=(2, Sq, cfg.d_model)))
+    vj, vt = bf16_pair(rng.normal(size=(2, Tv, cfg.d_model)))
+    pos = np.tile(np.arange(Sq, dtype=np.int32), (2, 1))
+    zeros = np.zeros((2, Tv), np.int32)
+    jy, (jk, jv) = JA.attention_block(
+        ja["cross_attn"], xj, cfg=jcfg, positions=jnp.asarray(pos), kv_x=vj,
+        kv_positions=jnp.asarray(zeros), causal=False, rope=False,
+        q_chunk=8, kv_chunk=8)
+    ty, (tk, tv) = A.attention_block(
+        tb["cross_attn"], xt, cfg=cfg, positions=torch.from_numpy(pos),
+        kv_x=vt, kv_positions=torch.from_numpy(zeros), causal=False,
+        rope=False, q_chunk=8, kv_chunk=8)
+    assert tk.shape == (2, Tv, cfg.n_kv_heads, cfg.resolved_head_dim)
+    assert_ulps(ty, jy)
+    assert_ulps(tk, jk)
+    assert_ulps(tv, jv)
+
+    uj, ut = bf16_pair(rng.normal(size=(2, 1, cfg.d_model)))
+    jy = JA.decode_cross_attention(ja["cross_attn"], uj, jk, jv, Tv, cfg=jcfg)
+    ty = A.decode_cross_attention(tb["cross_attn"], ut, tk, tv, cfg=cfg)
+    assert_ulps(ty, jy)
+
+    # the whole gated block, prefill and decode
+    jx, (jk, jv) = JT.cross_block_seq(ja, xj, vj, jcfg, jnp.asarray(pos))
+    tx, (tk, tv) = T.cross_block_seq(tb, xt, vt, cfg, torch.from_numpy(pos))
+    assert_ulps(tx, jx, 2)
+    assert_ulps(tk, jk)
+    jx = JT.cross_block_step(ja, uj, jk, jv, jcfg)
+    tx = T.cross_block_step(tb, ut, tk, tv, cfg)
+    assert_ulps(tx, jx, 2)
+    assert float((tx.float() - ut.float()).abs().max()) > 1e-2   # not a no-op
+
+
 # -------------------------------------------------------- parameter counts
-PORTED_FULL = ["zamba2-2.7b", "mamba2-2.7b", "phi3-mini-3.8b", "smollm-360m",
-               "qwen3-4b", "qwen1.5-0.5b", "musicgen-large"]
-
-
-@pytest.mark.parametrize("name", PORTED_FULL)
+@pytest.mark.parametrize("name", ALL_CONFIGS)
 def test_param_count_matches_jax_without_allocating(name):
-    cfg = get_config(name)
-    assert cfg.family in ("dense", "audio", "ssm", "hybrid")
-    assert cfg.n_params() == jget_config(name).n_params()
+    cfg, jcfg = get_config(name), jget_config(name)
+    assert cfg.n_params() == jcfg.n_params()
+    assert cfg.n_active_params() == jcfg.n_active_params()
+    assert (cfg.n_active_params() < cfg.n_params()) == (cfg.family == "moe")
     assert all(t.device.type == "meta" for t in M.leaves(M.param_shapes(cfg)))
 
 
@@ -185,13 +240,31 @@ def test_zamba2_full_width_param_count():
     assert get_config("zamba2-2.7b").n_params() == 2_422_670_240
 
 
-@pytest.mark.parametrize("name", ["arctic-480b", "deepseek-moe-16b",
-                                  "llama-3.2-vision-90b"])
-def test_unported_families_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        get_config(name).n_params()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        M.init_params(reduce_for_smoke(get_config(name)), device="cpu")
+def test_moe_and_vlm_full_width_param_counts():
+    ds = get_config("deepseek-moe-16b")
+    assert (ds.n_params(), ds.n_active_params()) == (16_375_728_128,
+                                                     2_828_650_496)
+    arctic = get_config("arctic-480b")
+    assert (arctic.n_params(), arctic.n_active_params()) == (
+        476_850_275_328, 15_584_314_368)
+    # the depth chip_smoke.py serves: two units of 4 self + 1 cross layer
+    llama10 = dataclasses.replace(get_config("llama-3.2-vision-90b"),
+                                  n_layers=10)
+    assert llama10.n_params() == 10_657_898_500
+
+
+def test_every_config_builds_and_runs_a_step():
+    for name in ALL_CONFIGS:
+        cfg = reduce_for_smoke(get_config(name))
+        params = M.init_params(cfg, 0, device="cpu")
+        assert sum(t.numel() for t in M.leaves(params)) == cfg.n_params()
+        cache = M.init_decode_cache(cfg, 1, 8, device="cpu")
+        with torch.inference_mode():
+            logits, _ = M.decode_step(params, cfg,
+                                      torch.zeros((1, 1), dtype=torch.long),
+                                      cache, 0)
+        assert logits.shape == (1, 1, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all())
 
 
 def test_configs_and_smoke_reduction_match_jax():
