@@ -14,18 +14,29 @@
    diagnostics, openPMD writes, a particle dump, a device-compressed
    checkpoint, restore and restart, and checks the results and the kernels'
    launch counts (the checkpoint's shuffle: one launch a shuffled leaf);
+   on the same state the multi-process write plane: the dump again through
+   4 writer processes (byte-identical to the serial series), a writer
+   plane's spawn, and a device-compressed `CheckpointManager` save through
+   that plane behind the next 10-step chunk, with its write, blocked and
+   overlap times, the bytes each writer received, shm against pickle
+   transport bytes, and a bit-exact restore;
 5. holds the flash attention and SSD scan kernels against their plain
    versions at the serving paths' shapes (and a few others), and times
    flash at each serving shape beside SDPA;
-6. drives three serving paths through `ServeEngine.generate` (batch 4,
-   prompt 512, 32 new tokens), random params from a seed, each with its
-   own peak memory: zamba2-2.7b at full width and depth (2,422,670,240
+6. drives the serving paths through `ServeEngine.generate`, random params
+   from a seed, each with its own peak memory. Three at batch 4, prompt
+   512, 32 new tokens: zamba2-2.7b at full width and depth (2,422,670,240
    params; 9 flash and 54 SSD launches per prefill), deepseek-moe-16b at
    full width and depth (16,375,728,128 params, initialised in bf16; 28
    flash launches per prefill) and llama-3.2-vision-90b at full width and
    10 of its 100 layers (10,657,898,500 params in bf16, seeded vision
    embeddings, cross gates at 1.0; 10 flash launches per prefill, 2 of
-   them over 1600 image tokens), none in decode; each kernel against its
+   them over 1600 image tokens), none in decode. Then a short serve
+   (batch 2, prompt 128, 8 new tokens) of every other registered config
+   that fits one card, at full width and depth: phi3-mini-3.8b (flash at
+   head_dim 96), qwen1.5-0.5b, qwen3-4b, smollm-360m, mamba2-2.7b (the SSD
+   kernel alone) and musicgen-large; arctic-480b does not fit and is
+   named as not run. On every path each kernel against its
    plain version on the prefill's activations, and, in units of a noise
    floor, the forward through the kernels against the one through the
    plain versions and decode against a teacher-forced forward (for the
@@ -181,6 +192,12 @@ def _profile_rows(prof, wall_s, n):
                    for ev in prof.key_averages()), key=lambda r: -r[1])
     rows = [r for r in rows if r[1] > 0]
     busy = sum(r[1] for r in rows) / 1e3 / n
+    if not busy:
+        print("profile: the profiler recorded no device time; device ms and "
+              "idle share not measured")
+        return {"device_ms": None, "profiled_wall_ms": 1e3 * wall_s / n,
+                "idle_share": None, "launches": None, "port_kernels": {},
+                "top": []}
     # the port's own kernels: device ms and recorded launches per step, and
     # the mean ms a launch (a long process's profile may miss launches)
     ours = {}
@@ -503,6 +520,11 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
                 if isinstance(a, torch.Tensor) else a == b)
         if not same:
             raise AssertionError(f"restored leaf {name} differs")
+    # the parallel write plane on the same state: the dump through 4
+    # writer processes, then a manager checkpoint behind the next chunk
+    par = run_parallel_io(torch, workdir, cfg, state, written, series_path,
+                          back, n_io_ranks, timed)
+    steps += par["steps"]
     restored = sim.PicState(**back)
     restored = timed("restart_compute_s",
                      lambda: sim.pic_run_chunk(restored, cfg, 10))
@@ -542,12 +564,231 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
     if dev_bytes != expect_bytes:
         raise AssertionError(f"COMPRESS_DEVICE_BYTES {dev_bytes} != "
                              f"{expect_bytes}")
-    return {"timings_s": t, "steps": steps, "diag_calls": diag_calls,
+    return {"timings_s": t, "steps": steps, "timed_steps": steps -
+            par["steps"], "diag_calls": diag_calls, "parallel_io": par,
             "device_bytes": dev_bytes, "restored_from": at,
             "shuffled_leaves": shuffled_leaves,
             "counts_start": {k: d0[k] for k in d0 if k.startswith("count/")},
             "counts_end": {k: d1[k] for k in d1 if k.startswith("count/")},
             "ionizations": d1["ionizations"]}
+
+
+def _subfile_bytes(path: pathlib.Path) -> dict:
+    return {f.name: f.stat().st_size for f in sorted(path.glob("data.*"))}
+
+
+def _transport_bytes(MONITOR, CTR) -> tuple[float, float]:
+    tot = MONITOR.report()["total"]
+    return (tot.get(CTR.TRANSPORT_SHM_BYTES, 0.0),
+            tot.get(CTR.TRANSPORT_PICKLE_FALLBACK_BYTES, 0.0))
+
+
+def _engine_step(prof: dict) -> dict:
+    """The parallel engine's account of one committed step: seconds to
+    the workers' prepared votes and to the commit, host compression
+    seconds summed over the workers, each worker's seconds, bytes."""
+    keys = ("write_s", "prepare_s", "commit_s", "compress_s", "worker_s",
+            "bytes_raw", "bytes_stored", "transport_shm_bytes",
+            "transport_pickle_bytes")
+    return {k: prof[k] for k in keys if k in prof}
+
+
+def _metric_sums(METRICS) -> dict:
+    """The metrics plane's seconds, counts and bytes by operation, summed
+    over keys: the coordinator's (`device_shuffle`, `transport`,
+    `prepare`, `commit`) and those the workers shipped home (`compress`,
+    `seal`)."""
+    out = {}
+    for k, cell in METRICS.merged().items():
+        op = k.partition("|")[0]
+        d = out.setdefault(op, {"count": 0, "sum_s": 0.0, "sum_b": 0})
+        d["count"] += cell["count"]
+        d["sum_s"] += cell["sum_s"]
+        d["sum_b"] += cell["sum_b"]
+    return out
+
+
+def run_parallel_io(torch, workdir: pathlib.Path, cfg, state, written: dict,
+                    series_path: pathlib.Path, serial_back: dict,
+                    n_io_ranks: int, timed) -> dict:
+    """The multi-process write plane on the main path's state, after the
+    serial dump and checkpoint:
+    - the diagnostics and the particle dump again, the same puts in the
+      same order, through `open_diagnostic_series(parallel_io=4)` with the
+      serial series' engine config; its data.* and md.0 must equal the
+      serial series' byte for byte, and every variable must read back as
+      stored;
+    - a `WriterPlane(4)` spawned on its own (the manager's lazy plane),
+      then a device-compressed `CheckpointManager(parallel_io=4,
+      async_write=True)` save behind the next 10-step chunk, `wait()`,
+      and `restore_latest`, which must equal the serial restore bit for
+      bit; its device-shuffled bytes must be 72 C + 8, and its shuffle
+      launches are returned for the caller's check.
+    The shm transport needs 4 rings of 64 MiB in /dev/shm; where there is
+    less room the phase runs with `transport="pickle"` and says so."""
+    import types
+    import numpy as np
+    from repro_torch.ckpt.checkpoint import flatten_state
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.core import BpReader, EngineConfig, Series
+    from repro_torch.core.darshan import CTR, MONITOR
+    from repro_torch.core.metrics import METRICS
+    from repro_torch.core.shm_transport import DEFAULT_RING_BYTES
+    from repro_torch.kernels.bitshuffle import ops as bops
+    from repro_torch.pic import simulation as sim
+
+    W = 4
+    try:
+        shm_free = shutil.disk_usage("/dev/shm").free
+    except OSError:
+        shm_free = 0
+    # one plane's rings at a time (the dump's writers close before the
+    # manager's spawn), with as much again to spare
+    transport = "shm" if shm_free >= 2 * W * DEFAULT_RING_BYTES else "pickle"
+    print(f"parallel I/O: /dev/shm free {shm_free} bytes; {W} writers, "
+          f"transport {transport}"
+          + ("" if transport == "shm" else
+             f" (the shm rings need {W} x {DEFAULT_RING_BYTES} bytes)"))
+    out = {"dev_shm_free_bytes": shm_free, "transport": transport,
+           "writers": W, "t": {}}
+    engine = EngineConfig(aggregators=4, codec="blosc", workers=4)
+    dump_step = int(state.step)
+
+    # ---- the dump through W writer processes
+    shm0 = _transport_bytes(MONITOR, CTR)
+    ppath = workdir / "diag_par.bp4"
+
+    def pdump():
+        if transport == "shm":
+            series = sim.open_diagnostic_series(
+                ppath, n_io_ranks=n_io_ranks, engine_config=engine,
+                async_io=False, parallel_io=W)
+        else:
+            series = Series(ppath, "w", n_ranks=n_io_ranks,
+                            engine_config=engine, parallel_io=W,
+                            transport=transport)
+        for step, diag in written.items():
+            sim.write_diagnostics_openpmd(
+                series, types.SimpleNamespace(step=step), cfg,
+                n_io_ranks=n_io_ranks, diag=diag)
+            if step != dump_step:
+                series.flush()
+        sim.write_particle_dump_openpmd(series, state, cfg,
+                                        n_io_ranks=n_io_ranks)
+        out["dump_step_profile"] = _engine_step(series.flush())
+        series.close()
+    # the metrics plane's breakdown of each parallel write (the workers
+    # ship their cells home on their acks)
+    METRICS.reset()
+    METRICS.enable()
+    try:
+        timed("parallel_dump_s", pdump)
+    finally:
+        METRICS.disable()
+    out["dump_metrics"] = _metric_sums(METRICS)
+    shm1 = _transport_bytes(MONITOR, CTR)
+    out["dump_transport_bytes"] = {"shm": shm1[0] - shm0[0],
+                                   "pickle": shm1[1] - shm0[1]}
+    out["dump_subfile_bytes"] = _subfile_bytes(ppath)
+    names = ["md.0"] + sorted(f.name for f in series_path.glob("data.*"))
+    for name in names:
+        if (ppath / name).read_bytes() != (series_path / name).read_bytes():
+            raise AssertionError(f"parallel dump: {name} differs from the "
+                                 f"serial series'")
+    dumped = {}
+    for name, sp in (("e", state.electrons), ("D_plus", state.ions),
+                     ("D", state.neutrals)):
+        base = f"/data/{dump_step}/particles/{name}"
+        dumped.update({f"{base}/position/x": sp.x,
+                       f"{base}/momentum/x": sp.v[:, 0],
+                       f"{base}/momentum/y": sp.v[:, 1],
+                       f"{base}/momentum/z": sp.v[:, 2],
+                       f"{base}/weighting": sp.w * sp.alive})
+    n_vars = 0
+    with BpReader(ppath, parallel=W) as reader:
+        for step, diag in written.items():
+            for name, arr in diag.items():
+                if isinstance(arr, np.ndarray):
+                    var = f"/data/{step}/meshes/{name.replace('/', '_')}"
+                    if not (reader.read_var(step, var) == arr).all():
+                        raise AssertionError(f"parallel {var} reads back "
+                                             f"different")
+                    n_vars += 1
+        for var, t in dumped.items():
+            got = torch.from_numpy(reader.read_var(dump_step, var))
+            if not torch.equal(got, t.detach().cpu()):
+                raise AssertionError(f"parallel {var} reads back different")
+            n_vars += 1
+    out["dump_vars_read_back"] = n_vars
+    out["dump_identical_files"] = names
+
+    # ---- the manager: a persistent plane, a device-compressed checkpoint
+    # behind the next chunk
+    ckpt_dir = workdir / "ckpt_par"
+    mgr = CheckpointManager(ckpt_dir, every=10, n_io_ranks=n_io_ranks,
+                            engine_config=engine, async_write=True,
+                            parallel_io=W, transport=transport,
+                            device_compress=True)
+    try:
+        t0 = time.perf_counter()
+        mgr._writer_plane()          # the lazy spawn, on its own
+        out["t"]["plane_spawn_s"] = time.perf_counter() - t0
+        dev0 = MONITOR.report()["total"].get(CTR.COMPRESS_DEVICE_BYTES, 0.0)
+        shuf0 = bops.shuffle_blocks.launches
+        shm0 = _transport_bytes(MONITOR, CTR)
+        saved = state._asdict()
+        torch.cuda.synchronize()
+        METRICS.reset()
+        METRICS.enable()
+        try:
+            t0 = time.perf_counter()
+            mgr.save(saved, dump_step, force=True)
+            out["t"]["save_return_s"] = time.perf_counter() - t0
+            timed("overlap_compute_s",
+                  lambda: sim.pic_run_chunk(state, cfg, 10))
+            out["t"]["save_to_chunk_end_s"] = time.perf_counter() - t0
+            mgr.wait()
+            out["t"]["save_to_durable_s"] = time.perf_counter() - t0
+        finally:
+            METRICS.disable()
+        out["ckpt_metrics"] = _metric_sums(METRICS)
+        METRICS.reset()
+        shm1 = _transport_bytes(MONITOR, CTR)
+        out["device_bytes"] = (MONITOR.report()["total"].get(
+            CTR.COMPRESS_DEVICE_BYTES, 0.0) - dev0)
+        out["shuffle_launches"] = bops.shuffle_blocks.launches - shuf0
+        out["ckpt_transport_bytes"] = {"shm": shm1[0] - shm0[0],
+                                       "pickle": shm1[1] - shm0[1]}
+        out["manager"] = {**mgr.stats,
+                          "overlap_fraction": mgr.overlap_fraction()}
+        (ck,) = ckpt_dir.glob("step_*.bp4")
+        out["ckpt_subfile_bytes"] = _subfile_bytes(ck)
+        out["ckpt_step_profile"] = _engine_step(json.loads(
+            (ck / "profiling.json").read_text())["steps"][-1])
+        t0 = time.perf_counter()
+        back, at = mgr.restore_latest(saved)
+        out["t"]["restore_s"] = time.perf_counter() - t0
+    finally:
+        mgr.close()
+    if at != dump_step:
+        raise AssertionError(f"restore_latest gave step {at}")
+    if out["device_bytes"] != 72 * cfg.capacity + 8:
+        raise AssertionError(f"parallel checkpoint: COMPRESS_DEVICE_BYTES "
+                             f"{out['device_bytes']} != "
+                             f"{72 * cfg.capacity + 8}")
+    a, b = flatten_state(serial_back), flatten_state(back)
+    if list(a) != list(b):
+        raise AssertionError("parallel restore: leaves differ in name")
+    for name, x in a.items():
+        y = b[name]
+        same = (torch.equal(x, y) and x.dtype == y.dtype
+                and x.device == y.device
+                if isinstance(x, torch.Tensor) else x == y)
+        if not same:
+            raise AssertionError(f"parallel restore: leaf {name} differs")
+    out["steps"] = 10
+    print(f"parallel I/O: {json.dumps(out)}")
+    return out
 
 
 def _max_err(a, b) -> float:
@@ -571,6 +812,7 @@ FLASH_SERVE_SHAPES = {
     "deepseek-moe-16b": (4, 512, 512, 16, 128, True),
     "llama-3.2-vision-90b self": (4, 512, 512, 64, 128, True),
     "llama-3.2-vision-90b cross": (4, 512, 1600, 64, 128, False),
+    "phi3-mini-3.8b": (2, 128, 128, 32, 96, True),
 }
 
 
@@ -813,23 +1055,43 @@ def check_on_activations(torch, flash_calls, scan_calls) -> dict:
 
 
 def serve_launches(cfg) -> dict:
-    """The kernels' launches a prefill of `cfg`, a hybrid, moe or vlm
-    config: hybrid, flash in the shared block after every
-    `shared_attn_interval` Mamba2 layers and SSD in every Mamba2 layer;
-    moe and vlm, flash in every layer (vlm: self and cross layers)."""
+    """The kernels' launches a prefill of `cfg`: hybrid, flash in the
+    shared block after every `shared_attn_interval` Mamba2 layers and SSD
+    in every Mamba2 layer; ssm, SSD in every layer; dense, audio, moe and
+    vlm, flash in every layer (vlm: self and cross layers)."""
     if cfg.family == "hybrid":
         return {"flash_attention": cfg.n_layers // cfg.shared_attn_interval,
                 "ssd_scan": cfg.n_layers}
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "ssd_scan": cfg.n_layers}
     return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
 
 
+#: the serving paths: (arch, batch, prompt, new tokens, max_seq). The
+#: three long ones first; then a short serve of every other registered
+#: config that fits one card
+SERVE_PATHS = (("zamba2-2.7b", 4, 512, 32, 1024),
+               ("deepseek-moe-16b", 4, 512, 32, 1024),
+               ("llama-3.2-vision-90b", 4, 512, 32, 1024),
+               ("phi3-mini-3.8b", 2, 128, 8, 256),
+               ("qwen1.5-0.5b", 2, 128, 8, 256),
+               ("qwen3-4b", 2, 128, 8, 256),
+               ("smollm-360m", 2, 128, 8, 256),
+               ("mamba2-2.7b", 2, 128, 8, 256),
+               ("musicgen-large", 2, 128, 8, 256))
+#: registered configs that do not fit one card, and why
+NOT_SERVED = {"arctic-480b": "480B params, 960 GB in bf16, on an 80 GB card"}
+
+
 def serve_config(arch: str):
-    """The config `chip_smoke.py` serves for `arch`, with its cuts: zamba2
-    as published; deepseek-moe-16b at full width and depth and
-    llama-3.2-vision-90b at full width and 10 of its 100 layers, both
-    initialised in bf16 (fp32 masters beside the engine's bf16 copy need
-    98 GB for deepseek: bf16 draws are the same draws rounded once, so the
-    engine holds the same values)."""
+    """The config `chip_smoke.py` serves for `arch`, with its cuts:
+    deepseek-moe-16b at full width and depth and llama-3.2-vision-90b at
+    full width and 10 of its 100 layers, both initialised in bf16 (fp32
+    masters beside the engine's bf16 copy need 98 GB for deepseek: bf16
+    draws are the same draws rounded once, so the engine holds the same
+    values); zamba2-2.7b, phi3-mini-3.8b, qwen1.5-0.5b, qwen3-4b,
+    smollm-360m, mamba2-2.7b and musicgen-large as published, nothing
+    cut."""
     from repro_torch.configs.base import get_config
     cuts = {"deepseek-moe-16b": dict(param_dtype="bfloat16"),
             "llama-3.2-vision-90b": dict(n_layers=10,
@@ -1081,11 +1343,13 @@ def run_serve_path(torch, dev, cfg=None, *, batch=4, prompt=512, new=32,
         def forwards(fcfg):
             """Through the kernels, through the plain versions, and through
             the plain versions chunked otherwise (the chunks only matter to
-            them: 3 x 181 or 1 x 543 positions for flash, 128 or 64 for
-            the scan)."""
-            runs = [forward(fcfg, 256, 256, 128)]
+            them: for flash 3 x 181 or 1 x 543 positions of a prompt of
+            512, 3 x 45 or 1 x 135 of a prompt of 128; 128 or 64 for the
+            scan)."""
+            c = 256 if seq.shape[1] > 256 else 64
+            runs = [forward(fcfg, c, c, 128)]
             with routed(plain_flash, plain_scan):
-                runs += [forward(fcfg, 256, 256, 128),
+                runs += [forward(fcfg, c, c, 128),
                          forward(fcfg, 1024, 1024, 64)]
             return runs
 
@@ -1233,6 +1497,21 @@ def main() -> int:
     kernels += check_bitshuffle(torch, dev, 1 << 20, 4)
     for k in kernels:
         print_kernel(k)
+    # the LM kernels at the serving paths' shapes, and where a PIC step's
+    # device time goes: the profiler-timed numbers come before the long
+    # main path, late in which the profiler drops device records
+    t0 = time.perf_counter()
+    flash_row, flash_rows = check_flash_attention(torch, dev)
+    lm_kernels = [flash_row, check_ssd_scan(torch, dev)]
+    for k in flash_rows[1:]:
+        print_kernel(k)
+    for k in lm_kernels:
+        print_kernel(k)
+    print(json.dumps({"flash_serve_shapes": flash_rows}))
+    kernels += lm_kernels
+    print(f"LM kernel checks: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"step_profile": profile_steps(torch, dev)}))
+    torch.cuda.empty_cache()
 
     counters = {"deposit_cic": dops.deposit,
                 "byte_shuffle_blocks": bops.shuffle_blocks,
@@ -1254,16 +1533,21 @@ def main() -> int:
     if launches["deposit_cic"] != expect_dep:
         raise AssertionError(f"deposit launches {launches['deposit_cic']} "
                              f"!= {expect_dep}")
-    # one launch a shuffled leaf, none of the one-block wrapper
-    if (launches["byte_shuffle_blocks"] != res["shuffled_leaves"]
+    # one launch a shuffled leaf in each of the two device-compressed
+    # checkpoints (serial, and the manager's through the writer plane),
+    # none of the one-block wrapper
+    par = res["parallel_io"]
+    if (launches["byte_shuffle_blocks"] != 2 * res["shuffled_leaves"]
+            or par["shuffle_launches"] != res["shuffled_leaves"]
             or launches["byte_shuffle_block"] != 0):
         raise AssertionError(f"shuffle launches: shuffle_blocks "
-                             f"{launches['byte_shuffle_blocks']} != "
-                             f"{res['shuffled_leaves']} leaves, "
-                             f"shuffle_block {launches['byte_shuffle_block']}"
+                             f"{launches['byte_shuffle_blocks']} (parallel "
+                             f"checkpoint {par['shuffle_launches']}) for "
+                             f"{res['shuffled_leaves']} leaves a checkpoint,"
+                             f" shuffle_block {launches['byte_shuffle_block']}"
                              f" != 0")
     t = res["timings_s"]
-    compute_steps = res["steps"]
+    compute_steps = res["timed_steps"]
     ms_step = 1e3 * (t["compute_s"] + t["restart_compute_s"]) / compute_steps
     print(f"main path (paper_config, {compute_steps} steps): "
           f"{ms_step:.3f} ms/step; " + ", ".join(
@@ -1273,30 +1557,35 @@ def main() -> int:
           f"ionizations {res['ionizations']:.0f}; counts "
           f"{res['counts_start']} -> {res['counts_end']}")
     print(f"launches on the main path: {launches}")
-    print(json.dumps({"step_profile": profile_steps(torch, dev)}))
-    torch.cuda.empty_cache()
+    m = par["manager"]
+    print(f"parallel I/O ({par['writers']} writers, {par['transport']}): "
+          f"plane spawn {par['t']['plane_spawn_s']:.3f} s; dump "
+          f"{t['parallel_dump_s']:.3f} s (serial {t['dump_s']:.3f}), "
+          f"{len(par['dump_identical_files'])} files byte-identical, "
+          f"{par['dump_vars_read_back']} variables read back; manager "
+          f"checkpoint write {m['write_s']:.3f} s (serial "
+          f"{t['checkpoint_s']:.3f}), blocked {m['blocked_s']:.3f} s, "
+          f"overlap {m['overlap_fraction']:.3f}, save returned in "
+          f"{par['t']['save_return_s']:.3f} s, chunk behind it "
+          f"{t['overlap_compute_s']:.3f} s; {par['device_bytes']:.0f} "
+          f"device-shuffled bytes, {par['shuffle_launches']} shuffle "
+          f"launches, bit-exact restore in {par['t']['restore_s']:.3f} s; "
+          f"bytes a subfile: dump {par['dump_subfile_bytes']}, checkpoint "
+          f"{par['ckpt_subfile_bytes']}; transport bytes: dump "
+          f"{par['dump_transport_bytes']}, checkpoint "
+          f"{par['ckpt_transport_bytes']}")
 
-    # the serving paths: zamba2-2.7b, deepseek-moe-16b and
-    # llama-3.2-vision-90b at full width, each with the counts zeroed just
+    # the serving paths (SERVE_PATHS), each with the counts zeroed just
     # before its generate() and read just after
-    t0 = time.perf_counter()
-    flash_row, flash_rows = check_flash_attention(torch, dev)
-    lm_kernels = [flash_row, check_ssd_scan(torch, dev)]
-    for k in flash_rows[1:]:
-        print_kernel(k)
-    for k in lm_kernels:
-        print_kernel(k)
-    print(json.dumps({"flash_serve_shapes": flash_rows}))
-    kernels += lm_kernels
-    print(f"LM kernel checks: {time.perf_counter() - t0:.1f} s")
     serve_launches_by_path = {}
-    for arch in ("zamba2-2.7b", "deepseek-moe-16b", "llama-3.2-vision-90b"):
+    for arch, batch, prompt, new, max_seq in SERVE_PATHS:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
-        serve = run_serve_path(torch, dev, serve_config(arch))
+        serve = run_serve_path(torch, dev, serve_config(arch), batch=batch,
+                               prompt=prompt, new=new, max_seq=max_seq)
         # generate()'s launches, zeroed just before it
         serve_launches_by_path[arch] = serve["launches"]
         serve["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -1312,6 +1601,9 @@ def main() -> int:
               f"{serve['teacher_forcing']}, routing "
               f"{serve.get('routing_agreement')}, prefill drop share "
               f"{serve.get('prefill_drop_share')}")
+    for arch, why in NOT_SERVED.items():
+        print(f"serve path ({arch}): not run, it does not fit one card "
+              f"({why})")
     print(json.dumps({"serve_launches": serve_launches_by_path}))
     serve_launches = {k: sum(v[k] for v in serve_launches_by_path.values())
                       for k in ("flash_attention", "ssd_scan")}

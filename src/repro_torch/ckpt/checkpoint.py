@@ -6,11 +6,12 @@ package's `flatten_state` names them, so a checkpoint written by either
 package restores in the other. Host leaves are written as row-split chunks
 by logical I/O rank, so N ranks -> M aggregator subfiles exactly as the
 paper's BIT1 checkpoints (.dmp) map onto BP4. A tensor leaf with
-`device_compress` is handed to the engine whole and byte-shuffled on its
-device before the host LZ stage.
+`device_compress` is handed to the engine whole, at rank 0, and
+byte-shuffled on its device before the host LZ stage. `parallel_io=W`
+writes through W writer processes (`repro_torch.core.parallel_engine`).
 
-The multi-process write plane (`parallel_io`) and the elastic re-sharding
-restore (`restore_sharded`) belong to later slices of the port.
+A leaf sharded over a device mesh, and the elastic re-sharding restore
+(`restore_sharded`), come with the port's mesh layer (DTensor).
 """
 from __future__ import annotations
 
@@ -110,25 +111,33 @@ def save_checkpoint(directory, state, step: int, *, n_io_ranks: int = 8,
                     extra_attrs: Optional[dict] = None,
                     async_io: bool = False,
                     parallel_io: int = 0,
+                    writer_plane=None,
+                    transport: str = "shm",
                     device_compress: bool = False) -> pathlib.Path:
     """Atomic checkpoint write: <dir>/step_<N>.bp4 (.tmp + rename).
 
     With `async_io` the write goes through the AsyncBpWriter pipeline;
     fsync_policy is still forced to "step", which the async engine honours
     with a BLOCKING seal — so by the time the .tmp is renamed the step's
-    md.idx record is durable either way.
+    md.idx record is durable either way. `parallel_io=W` instead writes
+    through W real writer processes (two-phase commit; the md.idx seal and
+    every subfile/shard fsync precede the rename), with chunk bytes moved
+    over per-worker shared-memory rings (`transport="shm"`, the default)
+    rather than pickled down queues. `writer_plane` (a
+    `repro_torch.core.parallel_engine.WriterPlane`) supplies
+    ALREADY-RUNNING writer processes for the parallel path — the spawn
+    cost is the plane owner's, paid once per run instead of once per save,
+    and the plane's rings stay mapped across saves (the plane inherits its
+    own transport; `transport` applies to the spawn-per-save path).
 
     `device_compress=True` (with the blosc codec) hands every tensor leaf
     of rank >= 1 to the engine as it is: it is byte-shuffled on its device
     (the bitshuffle kernel for a CUDA tensor), one launch a leaf for all
     its 1 MiB codec blocks, and only the LZ stage runs on the host. 0-d
     leaves, Python scalars and bfloat16 (raw uint16 storage) keep the host
-    path."""
-    if parallel_io:
-        raise NotImplementedError(
-            "parallel_io=W needs the multi-process write plane "
-            "(core/parallel_engine.py), which a later slice of the port "
-            "brings")
+    path. With `parallel_io` the coordinator shuffles such a leaf and the
+    workers receive pre-shuffled host bytes: they pay only the LZ stage.
+    Such a leaf is one chunk at rank 0, so it lands on writer 0."""
     directory = pathlib.Path(str(directory))
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}.bp4"
@@ -141,7 +150,12 @@ def save_checkpoint(directory, state, step: int, *, n_io_ranks: int = 8,
                               device_compress=(device_compress
                                                or engine_config.device_compress))
     use_dev = cfg.device_compress and C.codec_wants_device(cfg.codec)
-    if async_io:
+    if parallel_io or writer_plane is not None:
+        from repro_torch.core.parallel_engine import ParallelBpWriter
+        w = ParallelBpWriter(tmp, n_io_ranks, cfg,
+                             n_writers=parallel_io or None,
+                             plane=writer_plane, transport=transport)
+    elif async_io:
         from repro_torch.core.async_engine import AsyncBpWriter
         w = AsyncBpWriter(tmp, n_io_ranks, cfg)
     else:

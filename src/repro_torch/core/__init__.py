@@ -1,7 +1,7 @@
 """The openPMD / BP4-style I/O engine and Darshan-style monitoring of the
 port — its own copy of the JAX package's host planes, with tensors in the
-places where that package takes a jax.Array. The multi-process write plane
-(`parallel_engine`) is not part of this slice."""
+places where that package takes a jax.Array, including the multi-process
+write plane (`parallel_engine`, `shm_transport`)."""
 from repro_torch.core.bp_engine import BpReader, BpWriter, EngineConfig
 from repro_torch.core.darshan import MONITOR, DarshanMonitor, open_file
 from repro_torch.core.openpmd import (Iteration, Mesh, ParticleSpecies,

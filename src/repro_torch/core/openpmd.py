@@ -26,10 +26,27 @@ for every queued step, and `close()` implies `drain()`. The openPMD "chunks
 stay unmodified until flush" contract thereby RELAXES to "until end of
 flush()": the caller may reuse buffers as soon as flush returns.
 
-Multi-process I/O (`parallel_io=W`, `async_commit`) is the parallel write
-plane of the JAX package; it is not ported yet and raises
-NotImplementedError here. `transport` is still validated, so a bad
-spelling fails the same way in both packages.
+Multi-process I/O: `Series(..., parallel_io=W)` swaps in the
+`repro_torch.core.parallel_engine.ParallelBpWriter` — W REAL writer
+processes, each owning one aggregated subfile, committed per step by a
+rank-0 two-phase commit. Chunk bytes reach the workers through
+per-worker shared-memory rings by default (`transport="shm"`; `"pickle"`
+is the queue-serialization baseline). A tensor chunk is shuffled on its
+device (with `device_compress`) or copied to host by the coordinator: only
+numpy bytes cross to a worker, which never touches CUDA. The on-disk
+series is read-compatible with every other engine.
+
+Composition: `Series(..., parallel_io=W, async_commit=True)` puts a
+bounded snapshot queue in FRONT of the parallel coordinator — `flush()`
+returns after a deep-copy snapshot (a tensor cloned on its device) and
+the whole two-phase commit (compression, subfile appends, shard votes,
+md.idx seal) runs behind the producer; `drain()` is the durability
+barrier, exactly as with `async_io`. The two flags are validated UP
+FRONT: `async_io` names the single-process pipelined engine,
+`async_commit` names the parallel plane's pipelined commit, and asking
+for both planes at once (`async_io=True, parallel_io=W`) is a
+`ValueError` pointing at the `async_commit` spelling rather than a
+silently-ignored knob.
 """
 from __future__ import annotations
 
@@ -45,16 +62,6 @@ OPENPMD_VERSION = "1.1.0"
 BASE_PATH = "/data/%T/"
 MESHES_PATH = "meshes/"
 PARTICLES_PATH = "particles/"
-
-
-def validate_transport(transport: str) -> str:
-    """The one accepted-spelling check for every constructor that takes a
-    `transport=` — a transport the plane does not speak must fail
-    identically everywhere."""
-    if transport not in ("shm", "pickle"):
-        raise ValueError(f"unknown transport {transport!r} "
-                         "(expected 'shm' or 'pickle')")
-    return transport
 
 
 class RecordComponent:
@@ -226,12 +233,8 @@ class Series:
                 "async_commit=True is the parallel plane's pipelined commit "
                 "and requires parallel_io=W; for the single-process engine "
                 "use async_io=True instead")
+        from repro_torch.core.shm_transport import validate_transport
         validate_transport(transport)
-        if parallel_io:
-            raise NotImplementedError(
-                "parallel_io=W needs the multi-process write plane "
-                "(core/parallel_engine.py), which a later slice of the port "
-                "brings; use async_io=True or the sync writer")
         self.async_io = async_io
         self.async_commit = bool(async_commit)
         self.transport = transport
@@ -267,7 +270,15 @@ class Series:
             # reopen md.0/md.idx with "wb" and truncate sealed iterations
             raise RuntimeError(f"Series {self.path} is closed")
         if self._writer is None:
-            if self.async_io:
+            if self.parallel_io:
+                from repro_torch.core.parallel_engine import ParallelBpWriter
+                self._writer = ParallelBpWriter(self.path, self.n_ranks,
+                                                self.engine_config,
+                                                n_writers=self.parallel_io,
+                                                transport=self.transport,
+                                                async_commit=self.async_commit,
+                                                queue_depth=self.queue_depth)
+            elif self.async_io:
                 from repro_torch.core.async_engine import AsyncBpWriter
                 self._writer = AsyncBpWriter(self.path, self.n_ranks,
                                              self.engine_config,

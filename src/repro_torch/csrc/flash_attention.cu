@@ -55,7 +55,7 @@
 // was measured slower at this shape: without warpgroup ping-pong the two
 // products and the softmax run in series. D=80 gives 160-byte rows, which
 // match no TMA swizzle span. D must be a multiple of 16: D in {32, 64, 80,
-// 128} is instantiated.
+// 96, 128} is instantiated (96: phi3-mini's 3072 / 32 heads).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -395,6 +395,7 @@ extern "C" int jbp_flash_attention_fwd(
     case 32: return launch<32>(q, k, v, o, st, B, H, Sq, Skv, causal, scale, s);
     case 64: return launch<64>(q, k, v, o, st, B, H, Sq, Skv, causal, scale, s);
     case 80: return launch<80>(q, k, v, o, st, B, H, Sq, Skv, causal, scale, s);
+    case 96: return launch<96>(q, k, v, o, st, B, H, Sq, Skv, causal, scale, s);
     case 128: return launch<128>(q, k, v, o, st, B, H, Sq, Skv, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -12,7 +12,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)
 _SIGNATURES = {"jbp_flash_attention_fwd": (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     *(ctypes.c_longlong,) * 9,

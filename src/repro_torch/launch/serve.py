@@ -1,11 +1,14 @@
-"""Serving launcher: random params (seed 0) and batched greedy generation
-through `ServeEngine`, on the CUDA device unless `--device cpu`. Any
-config but a vlm's (whose image tokens this launcher has no way to make).
+"""Serving launcher: random params (seed 0), or those of the newest
+checkpoint under `--ckpt-dir`, and batched greedy generation through
+`ServeEngine`, on the CUDA device unless `--device cpu`. Any config but a
+vlm's (whose image tokens this launcher has no way to make).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --batch 4 --prompt-len 512 --new-tokens 32 --max-seq 1024
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --ckpt-dir /path/to/ckpt --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import argparse
 import numpy as np
 
 from repro_torch._device import resolve_device
+from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs.base import get_config, reduce_for_smoke
 from repro_torch.models import model as M
 from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -32,10 +36,6 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=256)
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir needs ckpt/manager.py, which is not ported yet "
-            "(ROADMAP.md Queue 1, item 3)")
     cfg = get_config(args.arch)
     if cfg.family == "vlm":
         raise ValueError(
@@ -46,6 +46,12 @@ def main(argv=None):
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
     params = M.init_params(cfg, 0, device=dev)
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir)
+        restored = mgr.restore_latest({"params": params})
+        if restored is not None:
+            params = restored[0]["params"]
+            print(f"restored checkpoint step {restored[1]}")
     eng = ServeEngine(cfg, params, ServeConfig(max_batch=args.batch,
                                                max_seq=args.max_seq,
                                                max_new_tokens=args.new_tokens))

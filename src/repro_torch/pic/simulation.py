@@ -235,8 +235,11 @@ def open_diagnostic_series(path, *, n_io_ranks: int = 8, async_io: bool = True,
                            parallel_io: int = 0,
                            device_compress: bool = False):
     """Series for BIT1-style diagnostic output, async by default so dumps
-    never stall the push/deposit loop. `parallel_io=W` (the multi-process
-    write plane) is not ported yet and raises NotImplementedError.
+    never stall the push/deposit loop. `parallel_io=W` moves compression
+    and the subfile appends into W writer processes, with the two-phase
+    commit behind a bounded snapshot queue (`async_commit`) when
+    `async_io`, so the push/deposit loop sees neither compression nor
+    commit latency.
 
     `device_compress=True` turns on the on-device compression
     precondition: tensor chunks stored on the series are byte-shuffled on
@@ -249,8 +252,10 @@ def open_diagnostic_series(path, *, n_io_ranks: int = 8, async_io: bool = True,
                                      codec="blosc")
     dc = True if device_compress else None   # None: engine_config decides
     return Series(path, "w", n_ranks=n_io_ranks, engine_config=engine_config,
-                  async_io=async_io, queue_depth=queue_depth,
-                  parallel_io=parallel_io, device_compress=dc)
+                  async_io=async_io and not parallel_io,
+                  async_commit=async_io and bool(parallel_io),
+                  parallel_io=parallel_io, queue_depth=queue_depth,
+                  device_compress=dc)
 
 
 def run_with_diagnostics(state: PicState, cfg: PicConfig, series=None, *,

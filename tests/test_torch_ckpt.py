@@ -1,7 +1,8 @@
 """Checkpoints across the two packages: the port names its variables as
 the JAX package's `flatten_state` does, a checkpoint written by either
 restores bit for bit in the other, and the port's example writes a series
-the JAX package reads."""
+the JAX package reads. Then the port's CheckpointManager, case by case as
+the JAX package's tests hold its own, and across the packages."""
 import shutil
 
 import jax
@@ -14,6 +15,7 @@ from repro.core.bp_engine import BpReader as JBpReader
 from repro.core.bp_engine import EngineConfig as JEngineConfig
 from repro.pic import simulation as jsim
 from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.core import EngineConfig
 from repro_torch.core.darshan import CTR, MONITOR
 from repro_torch.examples import pic_simulation
@@ -129,3 +131,198 @@ def test_port_example_writes_a_series_jax_reads(capsys):
         assert jckpt.list_checkpoints(workdir / "ckpt") == [10, 20]
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- manager
+# The manager cases of the JAX package's tests/test_ckpt.py and
+# test_shm_transport.py, on the port's CheckpointManager, with a PIC state
+# of CPU tensors (the port has no train state yet).
+
+def _pic_state(seed=1):
+    return sim.pic_run_chunk(sim.init_sim(CFG, seed, device="cpu"), CFG,
+                             1)._asdict()
+
+
+def _assert_same_state(got, want):
+    a, b = ckpt.flatten_state(got), ckpt.flatten_state(want)
+    assert list(a) == list(b)
+    for k, v in b.items():
+        if isinstance(v, torch.Tensor):
+            assert a[k].dtype == v.dtype and torch.equal(a[k], v), k
+        else:
+            assert a[k] == v, k
+
+
+def test_manager_retention_and_latest(tmpdir_path):
+    state = _pic_state()
+    mgr = CheckpointManager(tmpdir_path, every=1, keep_n=2, async_write=False,
+                            engine_async=True)
+    for s in (1, 2, 3, 4):
+        state = dict(state, step=torch.tensor(s, dtype=torch.int32))
+        mgr.save(state, s)
+    assert ckpt.list_checkpoints(tmpdir_path) == [3, 4]
+    restored, step = mgr.restore_latest(state)
+    assert step == 4 and int(restored["step"]) == 4
+
+
+def test_manager_skips_corrupt_checkpoint(tmpdir_path):
+    state = _pic_state()
+    mgr = CheckpointManager(tmpdir_path, every=1, keep_n=5, async_write=False)
+    mgr.save(state, 1)
+    mgr.save(state, 2)
+    idx = ckpt.checkpoint_path(tmpdir_path, 2) / "md.idx"
+    idx.write_bytes(b"")
+    restored = mgr.restore_latest(state)
+    assert restored is not None and restored[1] == 1
+    _assert_same_state(restored[0], state)
+
+
+def test_async_save_overlaps(tmpdir_path):
+    state = _pic_state()
+    mgr = CheckpointManager(tmpdir_path, every=1, keep_n=3, async_write=True)
+    mgr.save(state, 1)
+    mgr.save(state, 2)        # waits for 1, then writes 2 in background
+    mgr.wait()
+    assert ckpt.list_checkpoints(tmpdir_path) == [1, 2]
+    assert mgr.stats["saves"] == 2 and mgr.stats["write_s"] > 0
+    assert 0.0 <= mgr.overlap_fraction() <= 1.0
+
+
+def test_manager_persistent_parallel_plane_reuses_worker_pids(tmpdir_path):
+    """parallel_io checkpoints keep one WriterPlane alive: two consecutive
+    saves run on the SAME worker pids."""
+    state = {"w": torch.arange(256, dtype=torch.float32).reshape(16, 16),
+             "b": torch.ones(16)}
+    with CheckpointManager(tmpdir_path, every=1, keep_n=3,
+                           async_write=False, parallel_io=2,
+                           n_io_ranks=4) as mgr:
+        mgr.save(state, 1)
+        mgr.wait()
+        plane = mgr._plane
+        assert plane is not None and plane.alive()
+        pids = plane.pids()
+        mgr.save(state, 2)
+        mgr.wait()
+        assert mgr._plane is plane, "manager respawned the plane"
+        assert plane.pids() == pids, "saves did not reuse the worker pids"
+        assert all(p.is_alive() for p, _ in plane.workers)
+        assert ckpt.list_checkpoints(tmpdir_path) == [1, 2]
+        restored, step = mgr.restore_latest(state, parallel=2)
+        assert step == 2
+        assert torch.equal(restored["w"], state["w"])
+    assert not plane.alive()
+    for p, _ in plane.workers:
+        p.join(timeout=10)
+    assert all(not p.is_alive() for p, _ in plane.workers)
+
+
+def test_checkpoint_manager_survives_killed_plane_worker(tmpdir_path):
+    """Kill a plane worker between saves: the manager shuts the dead plane
+    down (unlinking its rings) and respawns a fresh one, so the next save
+    just succeeds."""
+    import os
+    import pathlib
+    import signal
+
+    state = {"w": torch.arange(256, dtype=torch.float32).reshape(16, 16)}
+    with CheckpointManager(tmpdir_path, every=1, parallel_io=2,
+                           async_write=False, n_io_ranks=4) as m:
+        assert m.save(state, 1)
+        m.wait()
+        plane = m._plane
+        old_names = [r.name for r in plane.rings]
+        os.kill(plane.workers[0][0].pid, signal.SIGKILL)
+        plane.workers[0][0].join(timeout=10.0)
+        assert m.save(state, 2)
+        m.wait()
+        assert m._plane is not plane
+        assert [r.name for r in m._plane.rings] != old_names
+        assert not any(pathlib.Path(f"/dev/shm/{n}").exists()
+                       for n in old_names), "dead plane leaked its rings"
+    restored, step = ckpt.restore_checkpoint(tmpdir_path, dict(state))
+    assert step == 2
+    assert torch.equal(restored["w"], state["w"])
+
+
+@pytest.mark.parametrize("device_compress,parallel_io",
+                         [(False, 0), (True, 0), (True, 2)])
+def test_save_then_change_in_place_restores_the_saved_values(
+        tmpdir_path, device_compress, parallel_io):
+    """save() returns before the write; the producer then changes every
+    tensor in place. The checkpoint holds the values at save()."""
+    state = _pic_state()
+    want = {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in ckpt.flatten_state(state).items()}
+    with CheckpointManager(tmpdir_path, every=1, async_write=True,
+                           device_compress=device_compress,
+                           parallel_io=parallel_io, n_io_ranks=4,
+                           engine_config=EngineConfig(codec="blosc")) as m:
+        assert m.save(state, 3)
+        for v in ckpt.flatten_state(state).values():
+            if isinstance(v, torch.Tensor):
+                v.logical_not_() if v.dtype == torch.bool else v.fill_(77)
+        m.wait()
+        back, step = m.restore_latest(state)
+    assert step == 3
+    _assert_same_state(back, ckpt.unflatten_like(state, want))
+
+
+def test_manager_device_compress_counts_the_shuffled_bytes(tmpdir_path):
+    """A device-compressed parallel save shuffles the same leaves as the
+    serial one (72 C + 8 bytes of a PIC state) and restores bit for bit."""
+    state = _pic_state()
+    with CheckpointManager(tmpdir_path, every=1, async_write=True,
+                           device_compress=True, parallel_io=2,
+                           n_io_ranks=4,
+                           engine_config=EngineConfig(codec="blosc")) as m:
+        m.save(state, 5)
+        m.wait()
+        assert MONITOR.report()["total"][CTR.COMPRESS_DEVICE_BYTES] == \
+            72 * CFG.capacity + 8
+        back, step = m.restore_latest(state)
+    assert step == 5
+    _assert_same_state(back, state)
+
+
+def test_restore_latest_onto_a_mesh_raises(tmpdir_path):
+    state = _pic_state()
+    m = CheckpointManager(tmpdir_path, every=1, async_write=False)
+    m.save(state, 1)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        m.restore_latest(state, shardings={})
+    assert m.restore_latest(state)[1] == 1
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_checkpoint_of_either_manager_restores_in_the_other(tmpdir_path,
+                                                            writer):
+    """A checkpoint written by one package's CheckpointManager (through
+    its parallel write plane) is restored by the other's."""
+    from repro.ckpt.manager import CheckpointManager as JCheckpointManager
+    jstate, flat = _jax_state()
+    tstate = state_from_numpy(flat, "cpu")._asdict()
+    jlike = jax.tree_util.tree_map(np.asarray, jstate._asdict())
+    if writer == "jax":
+        with JCheckpointManager(tmpdir_path, every=1, async_write=False,
+                                parallel_io=2, n_io_ranks=4,
+                                engine_config=JEngineConfig(
+                                    codec="blosc")) as m:
+            m.save(jstate._asdict(), 4)
+        back, step = CheckpointManager(tmpdir_path).restore_latest(
+            sim.init_sim(CFG, 9, device="cpu")._asdict())
+        assert step == 4
+        _assert_same_state(back, tstate)
+    else:
+        with CheckpointManager(tmpdir_path, every=1, async_write=False,
+                               parallel_io=2, n_io_ranks=4,
+                               device_compress=True,
+                               engine_config=EngineConfig(
+                                   codec="blosc")) as m:
+            m.save(tstate, 4)
+        back, step = JCheckpointManager(tmpdir_path).restore_latest(jlike)
+        assert step == 4
+        got = {k: np.asarray(v)
+               for k, v in jckpt.flatten_state(back).items()}
+        assert sorted(got) == sorted(flat)
+        for k, v in flat.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)

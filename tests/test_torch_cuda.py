@@ -112,7 +112,7 @@ def flash_err(got, ref):
     return err / min(FLASH_TOL * max(1.0, top / 4), 2 * ulp)
 
 
-@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", [256, 200])
 def test_flash_kernel_matches_plain_version(cuda_device, D, causal, S):
@@ -148,14 +148,14 @@ def _flash_against_plain(dev, B, Sq, Skv, H, D, causal, seed):
     return flash_err(got, plain)
 
 
-@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("S", [1, 65, 200, 512])
 def test_flash_kernel_at_one_ragged_and_full_tiles(cuda_device, D, S):
     assert _flash_against_plain(cuda_device, 2, S, S, 3, D, True,
                                 D + S) <= 1
 
 
-@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("Sq,Skv,causal", [(100, 300, False),
                                            (300, 70, False),
                                            (130, 260, True)])
@@ -524,3 +524,60 @@ def test_cross_block_on_the_card_matches_the_cpu(cuda_device):
     ry = T.cross_block_step(cp, u, rk, rv, cfg)
     assert _ulps(gy, ry) <= 4
 
+
+
+def _chunk_payloads(path):
+    """{(variable, rank, offset): payload bytes} of a checkpoint's step."""
+    from repro_torch.core.bp_engine import BpReader
+    out = {}
+    with BpReader(path) as r:
+        (step,) = r.valid_steps()
+        for name in r.var_names(step):
+            for ch in r.iter_chunks(step, name):
+                out[(name, ch.rank, ch.offset)] = r._read_payload(
+                    ch.agg, ch.file_offset, ch.nbytes)
+    return out
+
+
+def test_parallel_device_checkpoint_payloads_equal_the_serial_engines(
+        cuda_device, tmp_path):
+    """CUDA tensor leaves saved with device_compress through 4 writer
+    processes (shuffled by the coordinator's kernel, pre-shuffled bytes to
+    the workers) give the serial engine's payloads, chunk for chunk, and
+    restore bit for bit on the card."""
+    from repro_torch.ckpt.checkpoint import (restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.core.bp_engine import EngineConfig
+    from repro_torch.core.darshan import CTR, MONITOR
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(16)
+    state = {"x": torch.rand((3 << 19) + 5, generator=g, device=cuda_device),
+             "v": torch.randn((1 << 18, 3), generator=g, device=cuda_device),
+             "alive": (torch.rand(1 << 20, generator=g, device=cuda_device)
+                       > 0.3).float(),
+             "key": torch.tensor([7, 9], dtype=torch.uint32,
+                                 device=cuda_device),
+             "step": torch.tensor(4, dtype=torch.int32, device=cuda_device),
+             "charge": -1.0}
+    cfg = EngineConfig(aggregators=4, codec="blosc")
+    shuffled = {}
+    for which, kw in (("serial", {}), ("parallel", {"parallel_io": 4})):
+        MONITOR.reset()
+        before = bops.shuffle_blocks.launches
+        save_checkpoint(tmp_path / which, state, 4, n_io_ranks=16,
+                        engine_config=cfg, device_compress=True, **kw)
+        shuffled[which] = (bops.shuffle_blocks.launches - before,
+                           MONITOR.report()["total"].get(
+                               CTR.COMPRESS_DEVICE_BYTES, 0))
+        back, _ = restore_checkpoint(tmp_path / which, state)
+        for k, v in state.items():
+            if isinstance(v, torch.Tensor):
+                assert back[k].device == v.device and torch.equal(back[k], v)
+    nbytes = sum(state[k].numel() * state[k].element_size()
+                 for k in ("x", "v", "alive", "key"))
+    assert shuffled["serial"] == shuffled["parallel"] == (4, nbytes)
+    serial = _chunk_payloads(tmp_path / "serial" / "step_00000004.bp4")
+    parallel = _chunk_payloads(tmp_path / "parallel" / "step_00000004.bp4")
+    assert serial.keys() == parallel.keys()
+    for key, payload in serial.items():
+        assert parallel[key] == payload, key

@@ -45,7 +45,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     for name in ("configs.base", "models.model", "models.convert",
                  "models.moe", "models.transformer",
                  "kernels.flash_attention.ops", "kernels.ssd_scan.ops",
-                 "serve.engine", "launch.serve"):
+                 "serve.engine", "launch.serve", "launch.distributed",
+                 "core.shm_transport", "core.parallel_engine",
+                 "ckpt.manager"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 

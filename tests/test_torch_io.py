@@ -242,7 +242,23 @@ def test_async_series_snapshots_tensors_at_flush(tmpdir_path):
 
 
 def test_parallel_io_is_not_ported_yet(tmpdir_path):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Series(tmpdir_path / "p.bp4", "w", parallel_io=2)
-    with pytest.raises(ValueError, match="transport"):
-        Series(tmpdir_path / "p.bp4", "w", transport="tcp")
+    """The parallel write plane is ported now: `parallel_io=W` writes
+    through W writer processes, and a bad transport still fails the same
+    way in both packages."""
+    from repro_torch.core.parallel_engine import ParallelBpWriter
+    arr = np.arange(64, dtype=np.float32)
+    s = Series(tmpdir_path / "p.bp4", "w", n_ranks=2, parallel_io=2,
+               transport="pickle",
+               engine_config=EngineConfig(aggregators=2, codec="blosc"))
+    rc = s.iterations[0].meshes["a"][""]
+    rc.reset_dataset(arr.dtype, arr.shape)
+    rc.store_chunk(torch.from_numpy(arr[:32].copy()), offset=(0,), rank=0)
+    rc.store_chunk(arr[32:], offset=(32,), rank=1)
+    s.flush()
+    assert isinstance(s._writer, ParallelBpWriter) and s._writer.m == 2
+    s.close()
+    with JBpReader(tmpdir_path / "p.bp4") as r:
+        np.testing.assert_array_equal(r.read_var(0, "/data/0/meshes/a"), arr)
+    for series_cls in (Series, JSeries):
+        with pytest.raises(ValueError, match="transport"):
+            series_cls(tmpdir_path / "q.bp4", "w", transport="tcp")

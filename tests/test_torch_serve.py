@@ -291,9 +291,35 @@ def test_serve_launcher_runs_on_the_cpu(capsys):
     assert toks.shape == (2, 3)
     out = capsys.readouterr().out
     assert "req0:" in out and "req1:" in out
-    with pytest.raises(NotImplementedError, match="ckpt/manager.py"):
-        serve.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu",
-                    "--ckpt-dir", "somewhere"])
+
+
+def test_serve_launcher_restores_params_from_ckpt_dir(tmp_path, capsys):
+    """`--ckpt-dir` restores {"params": ...} through the port's
+    CheckpointManager, as the JAX package's launcher does: an empty
+    directory leaves the seeded params, a checkpoint of other params
+    serves those."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.launch import serve
+    args = ["--arch", "smollm-360m", "--smoke", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "8", "--new-tokens", "4",
+            "--max-seq", "16"]
+    seeded = serve.main(args)
+    empty = serve.main(args + ["--ckpt-dir", str(tmp_path / "none")])
+    assert np.array_equal(seeded, empty)
+    assert "restored" not in capsys.readouterr().out
+    cfg = reduce_for_smoke(get_config("smollm-360m"))
+    other = M.init_params(cfg, 5, device="cpu")
+    with CheckpointManager(tmp_path / "ck", every=1,
+                           async_write=False) as mgr:
+        mgr.save({"params": other}, 3)
+    restored = serve.main(args + ["--ckpt-dir", str(tmp_path / "ck")])
+    assert "restored checkpoint step 3" in capsys.readouterr().out
+    eng = ServeEngine(cfg, other, ServeConfig(max_batch=2, max_seq=16,
+                                              max_new_tokens=4))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    assert np.array_equal(restored, eng.generate(prompts, new_tokens=4))
+    assert not np.array_equal(restored, seeded)
 
 
 def test_engine_refuses_a_request_over_its_cache_budget():
