@@ -20,9 +20,24 @@
    that plane behind the next 10-step chunk, with its write, blocked and
    overlap times, the bytes each writer received, shm against pickle
    transport bytes, and a bit-exact restore;
+   the same diagnostics and dump also go out the paper's Original-I/O way
+   (one text .dat and one binary .dmp file a rank, 16 ranks), read back
+   bit for bit, with seconds, files, bytes and Darshan counters beside
+   the openPMD series'; then, from the main path's final state, in-situ
+   streaming: 3 chunks of `run_with_diagnostics` into an `SstStream`
+   teed to an `AsyncBpWriter`, with the SST example's four reducers live
+   and inline, equal to the post-hoc replay of the teed series exactly;
 5. holds the flash attention and SSD scan kernels against their plain
    versions at the serving paths' shapes (and a few others), and times
-   flash at each serving shape beside SDPA;
+   flash at each serving shape beside SDPA; holds the flash kernel's lse
+   output (training) against the plain version's at every head_dim and
+   times it beside the serving call at the train shape;
+5b. trains zamba2-2.7b at full width and depth (2,422,670,240 params,
+   batch 8 x seq 256, remat, AdamW) for 3 steps through
+   `make_train_step`: 18 flash and 162 SSD launches a step, the losses,
+   grad norms and updated params within 2 noise floors of the same steps
+   through the plain versions (the floor: the plain versions chunked
+   otherwise), a 4th step profiled, peak memory;
 6. drives the serving paths through `ServeEngine.generate`, random params
    from a seed, each with its own peak memory. Three at batch 4, prompt
    512, 32 new tokens: zamba2-2.7b at full width and depth (2,422,670,240
@@ -42,6 +57,12 @@
    plain versions and decode against a teacher-forced forward (for the
    moe, at no-drop capacity, with the share of routing decisions that
    agree);
+6b. trains smollm-360m at full width and 4 of its 32 layers through
+   `Trainer` with device-compressed checkpoints every 2 steps and
+   deterministic algorithms: an uninterrupted run, a run that crashes
+   after step 3 and one that resumes from step 2, equal to the
+   uninterrupted run bit for bit, then a serve from the newest
+   checkpoint, whose variables carry the JAX package's names;
 7. prints one JSON line of per-kernel numbers, then, as the last line,
    `{"ok": true, "device": {...}}`.
 
@@ -52,8 +73,10 @@ outside a checkout of the repository (it imports `repro_torch` from
 """
 import contextlib
 import dataclasses
+import functools
 import json
 import math
+import os
 import pathlib
 import shutil
 import statistics
@@ -465,6 +488,7 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
     state = timed("init_s", lambda: sim.init_sim(cfg, 0, device=dev))
     d0 = timed("diagnostics_s", lambda: diagnostics(state))
     series_path = workdir / "diag.bp4"
+    io0 = _darshan_totals(MONITOR)
     series = Series(series_path, "w", n_ranks=n_io_ranks,
                     engine_config=EngineConfig(aggregators=4, codec="blosc",
                                                workers=4))
@@ -490,6 +514,15 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
     timed("dump_s", dump)
     dump_step = int(state.step)
     dump_x = state.electrons.x.cpu().numpy()
+    # the paper's Original-I/O baseline on the same diagnostics and dump,
+    # beside the openPMD series that holds them
+    series_files = [f for f in series_path.iterdir() if f.is_file()]
+    openpmd = {"s": t["diag_write_s"] + t["dump_s"],
+               "files": len(series_files),
+               "bytes": sum(f.stat().st_size for f in series_files),
+               "darshan": _darshan_delta(io0, _darshan_totals(MONITOR))}
+    original_io = run_original_io(torch, workdir, cfg, state, written,
+                                  n_io_ranks, openpmd)
 
     ckpt_dir = workdir / "ckpt"
     saved = state._asdict()
@@ -567,6 +600,7 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
     return {"timings_s": t, "steps": steps, "timed_steps": steps -
             par["steps"], "diag_calls": diag_calls, "parallel_io": par,
             "device_bytes": dev_bytes, "restored_from": at,
+            "original_io": original_io, "state": restored,
             "shuffled_leaves": shuffled_leaves,
             "counts_start": {k: d0[k] for k in d0 if k.startswith("count/")},
             "counts_end": {k: d1[k] for k in d1 if k.startswith("count/")},
@@ -1452,6 +1486,610 @@ def profile_serve(torch, eng, cfg, tokens, gen, extra, n_decode: int = 4
     return out
 
 
+# ============================================================= host I/O planes
+_DARSHAN_KEYS = ("POSIX_OPENS", "POSIX_WRITES", "POSIX_BYTES_WRITTEN",
+                 "F_WRITE_TIME", "F_META_TIME")
+
+
+def _darshan_totals(MONITOR) -> dict:
+    tot = MONITOR.report()["total"]
+    return {k: tot.get(k, 0.0) for k in _DARSHAN_KEYS}
+
+
+def _darshan_delta(a: dict, b: dict) -> dict:
+    d = {k: b[k] - a[k] for k in _DARSHAN_KEYS}
+    busy = d["F_WRITE_TIME"] + d["F_META_TIME"]
+    d["meta_time_share"] = d["F_META_TIME"] / busy if busy else None
+    return d
+
+
+def _species_arrays(sp) -> dict:
+    """A species' dump records as host arrays, as the openPMD dump writes
+    them (`write_particle_dump_openpmd`)."""
+    return {"position/x": sp.x.cpu().numpy(),
+            "momentum/x": sp.v[:, 0].cpu().numpy(),
+            "momentum/y": sp.v[:, 1].cpu().numpy(),
+            "momentum/z": sp.v[:, 2].cpu().numpy(),
+            "weighting": (sp.w * sp.alive).cpu().numpy()}
+
+
+def run_original_io(torch, workdir: pathlib.Path, cfg, state, written: dict,
+                    n_io_ranks: int, openpmd: dict) -> dict:
+    """The paper's Original-I/O baseline (`core/original_io.py`, §IV and
+    Table II) on the main path's data: each mvstep diagnostic of `written`
+    as one text .dat file a rank and the dmpstep particle dump of `state`
+    as one binary .dmp file a rank, both split over `n_io_ranks` ranks as
+    the openPMD series splits them. Every .dmp reads back bit for bit.
+    Returns seconds, files, bytes and Darshan counters beside `openpmd`'s
+    (the same data through the openPMD/BP4 series)."""
+    import numpy as np
+    from repro_torch.core.darshan import MONITOR
+    from repro_torch.core.original_io import read_dmp, write_dat, write_dmp
+
+    out_dir = workdir / "original_io"
+    step = int(state.step)
+    d0 = _darshan_totals(MONITOR)
+    t0 = time.perf_counter()
+    for dstep, diag in written.items():
+        for r in range(n_io_ranks):
+            part = {}
+            for name, arr in diag.items():
+                if isinstance(arr, np.ndarray):
+                    per = max(arr.shape[0] // n_io_ranks, 1)
+                    hi = arr.shape[0] if r == n_io_ranks - 1 else (r + 1) * per
+                    part[name] = arr[r * per:hi]
+            write_dat(out_dir, r, dstep, part)
+    dat_s = time.perf_counter() - t0
+    d1 = _darshan_totals(MONITOR)
+    dump = {name: _species_arrays(sp) for name, sp in
+            (("e", state.electrons), ("D_plus", state.ions),
+             ("D", state.neutrals))}
+    C = cfg.capacity
+    per = C // n_io_ranks
+    t0 = time.perf_counter()
+    paths = []
+    for r in range(n_io_ranks):
+        hi = C if r == n_io_ranks - 1 else (r + 1) * per
+        paths.append(write_dmp(out_dir, r, step, {
+            f"{sp}/{rec}": arr[r * per:hi]
+            for sp, recs in dump.items() for rec, arr in recs.items()}))
+    dmp_s = time.perf_counter() - t0
+    d2 = _darshan_totals(MONITOR)
+    t0 = time.perf_counter()
+    for r, p in enumerate(paths):
+        hi = C if r == n_io_ranks - 1 else (r + 1) * per
+        back = read_dmp(p, rank=r)
+        for sp, recs in dump.items():
+            for rec, arr in recs.items():
+                if not np.array_equal(back[f"{sp}/{rec}"], arr[r * per:hi]):
+                    raise AssertionError(f"read_dmp {p.name} {sp}/{rec} "
+                                         f"differs")
+    read_s = time.perf_counter() - t0
+    files = sorted(out_dir.iterdir())
+    res = {
+        "ranks": n_io_ranks, "dat_steps": sorted(written),
+        "dmp_step": step,
+        "dat": {"s": dat_s, "files": sum(f.suffix == ".dat" for f in files),
+                "bytes": sum(f.stat().st_size for f in files
+                             if f.suffix == ".dat"),
+                "darshan": _darshan_delta(d0, d1)},
+        "dmp": {"s": dmp_s, "files": sum(f.suffix == ".dmp" for f in files),
+                "bytes": sum(f.stat().st_size for f in files
+                             if f.suffix == ".dmp"),
+                "darshan": _darshan_delta(d1, d2), "read_back_s": read_s},
+        "openpmd": openpmd}
+    expect = n_io_ranks * len(written)
+    if res["dat"]["files"] != expect or res["dmp"]["files"] != n_io_ranks:
+        raise AssertionError(f"original I/O wrote {res['dat']['files']} .dat "
+                             f"(expected {expect}) and {res['dmp']['files']}"
+                             f" .dmp files (expected {n_io_ranks})")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return res
+
+
+def print_original_io(res: dict):
+    o = res["openpmd"]
+    print(f"original I/O vs openPMD ({res['ranks']} ranks; diagnostics of "
+          f"steps {res['dat_steps']}, dump of step {res['dmp_step']}):")
+    for name, r in (("original .dat", res["dat"]), ("original .dmp",
+                                                    res["dmp"]),
+                    ("openPMD/BP4 series", o)):
+        d = r["darshan"]
+        print(f"  {name}: {r['s']:.3f} s, {r['files']} files, {r['bytes']} "
+              f"bytes; opens {d['POSIX_OPENS']:.0f}, writes "
+              f"{d['POSIX_WRITES']:.0f}, bytes written "
+              f"{d['POSIX_BYTES_WRITTEN']:.0f}, write time "
+              f"{d['F_WRITE_TIME']:.4f} s, metadata time "
+              f"{d['F_META_TIME']:.4f} s, metadata share "
+              f"{d['meta_time_share']}")
+    print(f"  .dmp read back bit for bit in {res['dmp']['read_back_s']:.3f} s")
+
+
+def insitu_reducers(cfg):
+    """`examples/sst_streaming.py`'s four reducers."""
+    from repro_torch.insitu import (FieldEnergy, Moments, ReducerSet,
+                                    SpeciesCount)
+    return ReducerSet([
+        SpeciesCount("density/e", scale=cfg.dx, name="n_e"),
+        SpeciesCount("density/D", scale=cfg.dx, name="n_D"),
+        Moments("vdist/e", name="vdist_moments"),
+        FieldEnergy("density/e", cell_volume=cfg.dx, name="e_field_energy"),
+    ])
+
+
+def run_insitu(torch, workdir: pathlib.Path, cfg, state, *, chunks: int = 3,
+               steps_per_chunk: int = 10) -> dict:
+    """In-situ streaming at `cfg`'s width from `state`: `chunks` chunks of
+    `run_with_diagnostics(stream=SstStream(tee=AsyncBpWriter),
+    reducers=...)`, with the four reducers of the SST example both inline
+    (`reducers=`) and live on a consumer thread (`attach_reducers`); after
+    the stream closes, the post-hoc replay of the teed series must equal
+    both exactly."""
+    from repro_torch.core.async_engine import AsyncBpWriter
+    from repro_torch.core.bp_engine import EngineConfig
+    from repro_torch.core.sst_engine import SstStream
+    from repro_torch.insitu import (assert_parity, attach_reducers,
+                                    reduce_posthoc)
+    from repro_torch.pic import simulation as sim
+
+    out = workdir / "insitu.bp4"
+    tee = AsyncBpWriter(out, n_ranks=4,
+                        cfg=EngineConfig(aggregators=2, codec="blosc"))
+    stream = SstStream(queue_depth=2, tee=tee)
+    live, inline = insitu_reducers(cfg), insitu_reducers(cfg)
+    consumer = attach_reducers(stream, live)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        state = sim.run_with_diagnostics(state, cfg, None, n_chunks=chunks,
+                                         steps_per_chunk=steps_per_chunk,
+                                         stream=stream, reducers=inline)
+    finally:
+        stream.close()
+        consumer.join(timeout=60)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if consumer.is_alive() or consumer.error is not None:
+        raise AssertionError(f"in-situ consumer failed: {consumer.error}")
+    t0 = time.perf_counter()
+    posthoc = reduce_posthoc(str(out), insitu_reducers(cfg))
+    posthoc_s = time.perf_counter() - t0
+    res_live = live.results()
+    assert_parity(res_live, posthoc)
+    assert_parity(inline.results(), posthoc)
+    n_D = res_live["n_D"]["counts"]
+    if len(n_D) != chunks:
+        raise AssertionError(f"in-situ: {len(n_D)} steps reduced, "
+                             f"expected {chunks}")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"chunks": chunks, "steps": chunks * steps_per_chunk,
+            "run_s": run_s, "posthoc_s": posthoc_s,
+            "reduced_steps": [int(s) for s in res_live["n_e"]["steps"]],
+            "n_e": [float(v) for v in res_live["n_e"]["counts"]],
+            "n_D": [float(v) for v in n_D],
+            "vdist_moments": {k: float(v) for k, v in
+                              res_live["vdist_moments"].items()
+                              if k in ("mean", "var")}}
+
+
+# ===================================================================== training
+#: the zamba2 train step: the launcher's defaults (batch 8, seq 256)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "zamba2-2.7b", 8, 256, 3
+#: the noise floor's other chunking of the plain versions (the trainer's
+#: are min(256, seq) for attention and min(64, seq) for SSD)
+FLOOR_ATTN_CHUNK, FLOOR_SSD_CHUNK = 128, 32
+#: the trainer phase: smollm-360m at full width, depth cut to fit the time
+TRAINER_ARCH, TRAINER_LAYERS = "smollm-360m", 4
+
+
+def train_launches(cfg) -> dict:
+    """The kernels' launches a remat'd train step, from the code: the
+    forward launches each kernel once a call; the backward recomputes each
+    checkpointed body. Hybrid: a unit is checkpointed around its inner
+    checkpointed Mamba2 layers, so an SSD call runs 3 times (forward, the
+    unit's recompute, the layer's recompute) and the shared block's flash
+    twice (forward, the unit's recompute). Dense: each layer once more.
+    The backward of either kernel launches none (flash: the plain
+    `_flash_bwd_impl`; SSD: autograd of the plain `ssd_chunked`)."""
+    if cfg.family == "hybrid":
+        units = cfg.n_layers // cfg.shared_attn_interval
+        return {"flash_attention": 2 * units, "ssd_scan": 3 * cfg.n_layers}
+    if cfg.family in ("dense", "audio"):
+        return {"flash_attention": 2 * cfg.n_layers, "ssd_scan": 0}
+    raise ValueError(f"no train launch count for family {cfg.family}")
+
+
+@functools.cache
+def _plain_flash_function():
+    """The flash autograd Function with the plain forward (and its lse)
+    in place of the kernel; the backward is the same."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_plain
+
+    class PlainForward(fops.FlashAttention):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, qc, kc):
+            out, lse = flash_fwd_plain(q, k, v, causal=causal, q_chunk=qc,
+                                       kv_chunk=kc)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.args = (causal, qc, kc)
+            return out
+    return PlainForward
+
+
+def plain_flash_train(q, k, v, *, causal=True, qc=512, kc=512):
+    """The flash wrapper's contract through its plain version, with the
+    same custom backward as the kernel's autograd Function
+    (`flash_attention_bwd_plain`)."""
+    return _plain_flash_function().apply(q, k, v, causal, qc, kc)
+
+
+def _train_batches(torch, cfg, dev, n: int, batch: int, seq: int) -> list:
+    from repro_torch.data.pipeline import SyntheticTokens, to_device
+    data = SyntheticTokens(cfg.padded_vocab, seq, batch, seed=0)
+    return [to_device(data.batch_at(i), dev) for i in range(n)]
+
+
+def _run_steps(torch, cfg, dev, batches, *, ssd_chunk, attn_chunk, flash,
+               scan, hp, launch_counters=None) -> dict:
+    """A fresh train state (params from seed 0) through one step a batch,
+    with the model's flash and SSD calls routed to `flash` and `scan`.
+    Returns the metrics, the step wall times, each step's kernel launches
+    and the state."""
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+    state = init_train_state(cfg, 0, device=dev)
+    step_fn = make_train_step(cfg, hp, q_chunk=attn_chunk,
+                              kv_chunk=attn_chunk, ssd_chunk=ssd_chunk)
+    out = {"loss": [], "grad_norm": [], "lr": [], "step_s": [],
+           "launches": []}
+    with routed(flash, scan):
+        for b in batches:
+            for fn in (launch_counters or {}).values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, b)
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["launches"].append({k: fn.launches for k, fn in
+                                    (launch_counters or {}).items()})
+            for k in ("loss", "grad_norm", "lr"):
+                out[k].append(float(m[k]))
+    out["state"] = state
+    out["step_fn"] = step_fn
+    return out
+
+
+def _param_gap(torch, a: list, b: list) -> dict:
+    """RMS and max of the elementwise difference of two lists of leaves
+    (b may lie on the host)."""
+    sq, n, mx = 0.0, 0, 0.0
+    for x, y in zip(a, b):
+        d = x.float() - y.to(x.device).float()
+        sq += float(torch.sum(d * d))
+        n += d.numel()
+        mx = max(mx, float(d.abs().max()))
+    return {"rms": math.sqrt(sq / n), "max": mx}
+
+
+def check_flash_lse(torch, dev) -> dict:
+    """The kernel's `lse` output against the plain version's at every
+    instantiated head_dim (causal and not) and at the zamba2 train shape,
+    and the output itself unchanged by it; times the lse-writing instance
+    beside the serving one (lse null) at the train shape. Limit on lse:
+    1e-3 absolute (fp32 sums in another order and the kernel's exp2; a
+    log in the wrong base or of unscaled scores is off by ~30 % of lse)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_plain
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    errs = {}
+    shapes = [(2, 200, 200, 4, D, c) for D in fops.HEAD_DIMS
+              for c in (True, False)]
+    shapes.append((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 80, True))
+    for B, Sq, Skv, H, D, causal in shapes:
+        q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev)
+                   .bfloat16() for S in (Sq, Skv, Skv))
+        out, lse = fops.flash_forward(q, k, v, causal=causal)
+        out_serve = fops.flash_attention(q, k, v, causal=causal)
+        ref, lref = flash_fwd_plain(q, k, v, causal=causal, q_chunk=256,
+                                    kv_chunk=256)
+        torch.cuda.synchronize()
+        el, eo = _max_err(lse, lref), _max_err(out, ref)
+        top = float(ref.float().abs().max())
+        errs[(B, Sq, Skv, H, D, causal)] = (el, eo)
+        if not (el <= 1e-3 and eo <= flash_limit(top)
+                and torch.equal(out, out_serve)):
+            raise AssertionError(f"flash lse {(B, Sq, Skv, H, D, causal)}: "
+                                 f"lse err {el}, out err {eo} (limit "
+                                 f"{flash_limit(top)}), equal to the "
+                                 f"serving call {torch.equal(out, out_serve)}")
+    print("flash lse vs plain (lse limit 1e-3; out flash_limit, and equal "
+          "to the call without lse): " + ", ".join(
+              f"{k}: lse {v[0]:.3g} out {v[1]:.3g}" for k, v in errs.items()))
+    B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, 32, 80
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lse_kernel(i):
+        return fops.flash_forward(q, k, v, causal=True)
+
+    def serve_kernel(i):
+        return fops.flash_attention(q, k, v, causal=True)
+
+    def yardstick(i):
+        return sdpa(qt, kt, vt, is_causal=True)
+    b, by = flash_bound(B, S, S, H, D, True)
+    b += 4 * B * H * S / HBM_BYTES_PER_S * 1e3     # the lse written
+    row = {"name": "flash_attention_lse", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
+           "path": f"{TRAIN_ARCH} train step (forward and recompute)",
+           "max_abs_err": errs[(B, S, S, H, D, True)][0],
+           "ms": time_ms(torch, lse_kernel, 50),
+           "device_ms": device_ms(torch, lse_kernel, 20, "flash_fwd_mma"),
+           "call_device_ms": library_device_ms(torch, lse_kernel, 20),
+           "serve_ms": time_ms(torch, serve_kernel, 50),
+           "serve_device_ms": device_ms(torch, serve_kernel, 20,
+                                        "flash_fwd_mma"),
+           "plain_ms": time_ms(torch, lambda i: flash_fwd_plain(
+               q, k, v, causal=True, q_chunk=256, kv_chunk=256), 5),
+           "library_ms": time_ms(torch, yardstick, 50),
+           "library_device_ms": library_device_ms(torch, yardstick, 20),
+           "bound_ms": b, "bound_by": by,
+           "shape": f"B={B} Sq={S} Skv={S} H={H} D={D} bf16 causal, "
+                    f"lse fp32 [B,H,S]"}
+    return row
+
+
+def run_train_step(torch, dev, cfg=None) -> dict:
+    """zamba2-2.7b at full width and depth through `make_train_step` (remat
+    on, the trainer's chunks: attention min(256, seq), SSD min(64, seq);
+    AdamW at the launcher's defaults), batch 8 x seq 256, 3 steps from
+    params of seed 0:
+    - through the kernels, counting each kernel's launches a step against
+      `train_launches`;
+    - through the plain versions (flash's plain forward with the same
+      backward; the plain `ssd_chunked` under autograd), from the same
+      state and batches;
+    - through the plain versions chunked otherwise (attention 128, SSD 32):
+      the noise floor.
+    The kernels' losses, grad norms (every step) and final params must be
+    within 2 noise floors of the plain run's. Then a 4th step through the
+    kernels under the profiler. Peak memory is printed."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.tree import tree_leaves
+
+    cfg = cfg or get_config(TRAIN_ARCH)
+    hp = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=100)
+    batches = _train_batches(torch, cfg, dev, TRAIN_STEPS + 1, TRAIN_BATCH,
+                             TRAIN_SEQ)
+    chunk = {"attn_chunk": min(256, TRAIN_SEQ),
+             "ssd_chunk": min(64, TRAIN_SEQ)}
+    counters = {"flash_attention": fops.flash_attention,
+                "ssd_scan": sops.ssd_scan}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kern = _run_steps(torch, cfg, dev, batches[:TRAIN_STEPS], **chunk,
+                      flash=fops.flash_attention, scan=sops.ssd_scan, hp=hp,
+                      launch_counters=counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect = train_launches(cfg)
+    for i, got in enumerate(kern["launches"]):
+        if got != expect:
+            raise AssertionError(f"train step {i + 1}: launches {got} != "
+                                 f"{expect}")
+    # a 4th step through the kernels, profiled
+    state, step_fn = kern["state"], kern["step_fn"]
+    k_params = [t.detach().to("cpu", copy=True)
+                for t in tree_leaves(state["params"])]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        state, _ = step_fn(state, batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tp
+    prof_rows = _profile_rows(prof, wall, 1)
+    del state, step_fn, kern["state"], kern["step_fn"]
+    torch.cuda.empty_cache()
+
+    plain = _run_steps(torch, cfg, dev, batches[:TRAIN_STEPS], **chunk,
+                       flash=plain_flash_train, scan=plain_scan, hp=hp)
+    p_params = tree_leaves(plain.pop("state")["params"])
+    plain.pop("step_fn")
+    torch.cuda.empty_cache()
+    floor = _run_steps(torch, cfg, dev, batches[:TRAIN_STEPS],
+                       attn_chunk=FLOOR_ATTN_CHUNK,
+                       ssd_chunk=FLOOR_SSD_CHUNK, flash=plain_flash_train,
+                       scan=plain_scan, hp=hp)
+    f_params = tree_leaves(floor.pop("state")["params"])
+    floor.pop("step_fn")
+    gaps = {}
+    for key in ("loss", "grad_norm"):
+        gaps[key] = {
+            "kernels": max(abs(a - b) for a, b in zip(kern[key],
+                                                      plain[key])),
+            "floor": max(abs(a - b) for a, b in zip(floor[key],
+                                                    plain[key]))}
+    pk, pf = _param_gap(torch, p_params, k_params), _param_gap(
+        torch, p_params, f_params)
+    gaps["params_rms"] = {"kernels": pk["rms"], "floor": pf["rms"]}
+    gaps["params_max"] = {"kernels": pk["max"], "floor": pf["max"]}
+    del p_params, f_params, k_params
+    torch.cuda.empty_cache()
+    res = {"arch": cfg.name, "n_params": cfg.n_params(),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "remat": True, **chunk, "launches_per_step": kern["launches"],
+           "expected_launches": expect,
+           "step_s": kern["step_s"], "plain_step_s": plain["step_s"],
+           "loss": kern["loss"], "plain_loss": plain["loss"],
+           "floor_loss": floor["loss"], "grad_norm": kern["grad_norm"],
+           "plain_grad_norm": plain["grad_norm"],
+           "floor_grad_norm": floor["grad_norm"], "lr": kern["lr"],
+           "gaps": gaps, "peak_memory_gib": peak,
+           "profiled_step": prof_rows, "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"train_step": res}))
+    for key, g in gaps.items():
+        if not g["kernels"] <= 2 * g["floor"]:
+            raise AssertionError(f"train step {key}: kernels vs plain "
+                                 f"{g['kernels']} > 2 noise floors "
+                                 f"({g['floor']})")
+    for x in kern["loss"] + kern["grad_norm"]:
+        if not math.isfinite(x):
+            raise AssertionError(f"train step: non-finite metric {x}")
+    return res
+
+
+def run_trainer(torch, dev, workdir: pathlib.Path, full=None) -> dict:
+    """smollm-360m at full width (960 wide, 15 heads of 64 over 5 kv
+    heads), depth cut to TRAINER_LAYERS, through `Trainer` (batch 8, seq
+    256, 4 steps, checkpoints every 2 through a device-compressed
+    `CheckpointManager`), with deterministic algorithms on:
+    - an uninterrupted run;
+    - a run that crashes after step 3 (between the saves of steps 2 and
+      4), then a run that resumes from `restore_latest` (step 2); its
+      losses and final state must equal the uninterrupted run's bit for
+      bit;
+    - a serve (`ServeEngine.generate`) from the newest checkpoint, whose
+      variables carry the JAX package's names and stacked shapes; its
+      tokens must equal those of the resumed run's own params."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.ckpt.checkpoint import (Stacked, checkpoint_path,
+                                             flatten_state, list_checkpoints)
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.bp_engine import BpReader, EngineConfig
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    full = full or get_config(TRAINER_ARCH)
+    cfg = dataclasses.replace(full, n_layers=min(TRAINER_LAYERS,
+                                                 full.n_layers))
+    print(f"trainer phase: {cfg.name} at full width, depth cut "
+          f"{full.n_layers} -> {cfg.n_layers} layers "
+          f"({cfg.n_params()} params of {full.n_params()})")
+    steps = 4
+    tcfg = TrainerConfig(steps=steps, log_every=1, ckpt_every=2,
+                         seq_len=256, global_batch=8)
+    hp = AdamWConfig(lr=3e-4, warmup_steps=min(20, steps // 5 + 1),
+                     total_steps=steps)
+    engine = EngineConfig(aggregators=4, codec="blosc", workers=4)
+    t = {}
+
+    def trainer(path, tc=tcfg):
+        return Trainer(cfg, tc, hp, workdir / path, engine_config=engine,
+                       device=dev, device_compress=True)
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        fops.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        # the reference saves only the trainer's forced final checkpoint
+        ref = trainer("ref", dataclasses.replace(tcfg, ckpt_every=10 ** 9)) \
+            .run()
+        t["uninterrupted_s"] = time.perf_counter() - t0
+        ref_flash = fops.flash_attention.launches
+        t0 = time.perf_counter()
+        crashed = trainer("ckpt")
+        try:
+            crashed.run(crash_at=3)
+            raise AssertionError("the crash was not injected")
+        except RuntimeError as e:
+            if "injected crash" not in str(e):
+                raise
+        t["crash_run_s"] = time.perf_counter() - t0
+        saved_before = list_checkpoints(workdir / "ckpt")
+        resumer = trainer("ckpt")
+        fresh = resumer._fresh_state()
+        t0 = time.perf_counter()
+        resumed_from = resumer.manager.restore_latest(fresh)[1]
+        t["restore_s"] = time.perf_counter() - t0
+        del fresh
+        t0 = time.perf_counter()
+        resumed = resumer.run()
+        t["resume_run_s"] = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    if saved_before != [2] or resumed_from != 2:
+        raise AssertionError(f"checkpoints after the crash {saved_before}, "
+                             f"expected [2]; restored step {resumed_from}")
+    ref_loss = {h["step"]: h["loss"] for h in ref["history"]}
+    res_loss = {h["step"]: h["loss"] for h in resumed["history"]}
+    if set(res_loss) != {3, 4} or any(res_loss[s] != ref_loss[s]
+                                      for s in res_loss):
+        raise AssertionError(f"resumed losses {res_loss} != uninterrupted "
+                             f"{ref_loss}")
+    a, b = flatten_state(ref["state"]), flatten_state(resumed["state"])
+    for name, x in a.items():
+        y = b[name]
+        xs = x.parts if isinstance(x, Stacked) else [x]
+        ys = y.parts if isinstance(y, Stacked) else [y]
+        if not all(torch.equal(u, w) for u, w in zip(xs, ys)):
+            raise AssertionError(f"resumed state {name} differs from the "
+                                 f"uninterrupted run's")
+    # the newest checkpoint carries the JAX package's names and shapes
+    newest = list_checkpoints(workdir / "ckpt")[-1]
+    with BpReader(checkpoint_path(workdir / "ckpt", newest)) as reader:
+        info = reader.var_info(newest, "state/params/stack/layers/attn/wk/w")
+        n_vars = len(reader.var_names(newest))
+    want = [cfg.n_layers, cfg.d_model, cfg.n_kv_heads, cfg.resolved_head_dim]
+    if list(info["shape"]) != want:
+        raise AssertionError(f"checkpoint layers/attn/wk/w shape "
+                             f"{info['shape']} != {want}")
+    t0 = time.perf_counter()
+    like = M.init_params(cfg, 1, device=dev)
+    restored = CheckpointManager(workdir / "ckpt").restore_latest(
+        {"params": like})
+    t["serve_restore_s"] = time.perf_counter() - t0
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 128)).astype(np.int32)
+    scfg = ServeConfig(max_batch=2, max_seq=256, max_new_tokens=8)
+    fops.flash_attention.launches = 0
+    toks = ServeEngine(cfg, restored[0]["params"], scfg).generate(prompts)
+    serve_flash = fops.flash_attention.launches
+    want_toks = ServeEngine(cfg, resumed["state"]["params"], scfg).generate(
+        prompts)
+    if not np.array_equal(toks, want_toks) or serve_flash != cfg.n_layers:
+        raise AssertionError(f"serve from the checkpoint: tokens equal "
+                             f"{np.array_equal(toks, want_toks)}, flash "
+                             f"launches {serve_flash} != {cfg.n_layers}")
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "full_depth": full.n_layers, "n_params": cfg.n_params(),
+           "steps": steps, "ckpt_every": 2, "crash_at": 3,
+           "resumed_from": resumed_from,
+           "losses": [ref_loss[s] for s in sorted(ref_loss)],
+           "bit_exact_resume": True, "checkpoint_vars": n_vars,
+           "newest_checkpoint": newest, "serve_step": restored[1],
+           "flash_launches_uninterrupted": ref_flash,
+           "expected_flash_uninterrupted": steps * train_launches(cfg)[
+               "flash_attention"],
+           "serve_tokens": toks.tolist(), "t": t,
+           "manager": manager_stats(resumer.manager)}
+    if ref_flash != res["expected_flash_uninterrupted"]:
+        raise AssertionError(f"trainer flash launches {ref_flash} != "
+                             f"{res['expected_flash_uninterrupted']}")
+    print(json.dumps({"trainer": res}))
+    return res
+
+
+def manager_stats(m) -> dict:
+    return {**m.stats, "overlap_fraction": m.overlap_fraction(),
+            "saved_steps": m.saved_steps}
+
+
 def print_kernel(k: dict):
     lib = ("-" if k["library_ms"] is None else
            f"{k['library_ms']:.4f} (device {k['library_device_ms']})")
@@ -1461,7 +2099,15 @@ def print_kernel(k: dict):
           f"bound {k['bound_ms']:.5f} by {k['bound_by']}) at {k['shape']}")
 
 
+def paper_cfg():
+    from repro_torch.configs.bit1 import paper_config
+    return paper_config()
+
+
 def main() -> int:
+    # the trainer phase runs with deterministic algorithms, which need
+    # cuBLAS's fixed workspace, set before CUDA initialises
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1508,9 +2154,30 @@ def main() -> int:
     for k in lm_kernels:
         print_kernel(k)
     print(json.dumps({"flash_serve_shapes": flash_rows}))
-    kernels += lm_kernels
+    lse_row = check_flash_lse(torch, dev)
+    print_kernel(lse_row)
+    print(f"  flash with lse {lse_row['ms']:.4f} ms (device "
+          f"{lse_row['device_ms']:.5f}) against the serving call without "
+          f"it {lse_row['serve_ms']:.4f} ms (device "
+          f"{lse_row['serve_device_ms']:.5f})")
+    kernels += lm_kernels + [lse_row]
     print(f"LM kernel checks: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"step_profile": profile_steps(torch, dev)}))
+    torch.cuda.empty_cache()
+
+    # the zamba2 train step (profiled: early, before the profiler tires),
+    # the kernels' launches read a step at a time inside
+    train = run_train_step(torch, dev)
+    prof = train["profiled_step"]
+    print(f"train step ({train['arch']}, {train['n_params']} params, batch "
+          f"{train['batch']} x seq {train['seq']}, remat): step s "
+          f"{train['step_s']}, plain {train['plain_step_s']}; profiled "
+          f"step device ms {prof['device_ms']}, wall ms "
+          f"{prof['profiled_wall_ms']:.1f}, idle share {prof['idle_share']},"
+          f" launches {prof['launches']}; peak "
+          f"{train['peak_memory_gib']:.2f} GiB; launches a step "
+          f"{train['launches_per_step'][0]}; gaps {train['gaps']}; phase "
+          f"{train['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
     counters = {"deposit_cic": dops.deposit,
@@ -1557,6 +2224,7 @@ def main() -> int:
           f"ionizations {res['ionizations']:.0f}; counts "
           f"{res['counts_start']} -> {res['counts_end']}")
     print(f"launches on the main path: {launches}")
+    print_original_io(res["original_io"])
     m = par["manager"]
     print(f"parallel I/O ({par['writers']} writers, {par['transport']}): "
           f"plane spawn {par['t']['plane_spawn_s']:.3f} s; dump "
@@ -1574,6 +2242,30 @@ def main() -> int:
           f"{par['ckpt_subfile_bytes']}; transport bytes: dump "
           f"{par['dump_transport_bytes']}, checkpoint "
           f"{par['ckpt_transport_bytes']}")
+
+    # in-situ streaming from the main path's final state, the counts
+    # zeroed just before it and read just after
+    state = res.pop("state")
+    for fn in counters.values():
+        fn.launches = 0
+    workdir = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-insitu-"))
+    try:
+        insitu = run_insitu(torch, workdir, paper_cfg(), state)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del state
+    expect_dep = 2 * insitu["steps"] + 3 * insitu["chunks"]
+    if dops.deposit.launches != expect_dep:
+        raise AssertionError(f"in-situ deposit launches "
+                             f"{dops.deposit.launches} != {expect_dep}")
+    insitu["deposit_launches"] = dops.deposit.launches
+    print(json.dumps({"insitu": insitu}))
+    print(f"in-situ ({insitu['chunks']} chunks of "
+          f"{insitu['steps'] // insitu['chunks']} steps at paper width): "
+          f"{insitu['run_s']:.3f} s streamed, post-hoc replay "
+          f"{insitu['posthoc_s']:.3f} s, live == inline == post-hoc "
+          f"(exact); n_D {insitu['n_D']}")
+    torch.cuda.empty_cache()
 
     # the serving paths (SERVE_PATHS), each with the counts zeroed just
     # before its generate() and read just after
@@ -1608,8 +2300,41 @@ def main() -> int:
     serve_launches = {k: sum(v[k] for v in serve_launches_by_path.values())
                       for k in ("flash_attention", "ssd_scan")}
 
+    # train, crash, resume and serve through the Trainer, last: its
+    # deterministic mode and checkpoints touch no other phase
+    torch.cuda.empty_cache()
+    workdir = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-trainer-"))
+    try:
+        trainer = run_trainer(torch, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    tt = trainer["t"]
+    mg = trainer["manager"]
+    print(f"trainer ({trainer['arch']}, {trainer['n_layers']} of "
+          f"{trainer['full_depth']} layers, {trainer['n_params']} params): "
+          f"uninterrupted {tt['uninterrupted_s']:.2f} s, crash run "
+          f"{tt['crash_run_s']:.2f} s, restore {tt['restore_s']:.2f} s, "
+          f"resumed run {tt['resume_run_s']:.2f} s (saves {mg['saves']}, "
+          f"write {mg['write_s']:.2f} s, blocked {mg['blocked_s']:.2f} s), "
+          f"serve restore {tt['serve_restore_s']:.2f} s; losses "
+          f"{trainer['losses']}; resume bit-exact; served step "
+          f"{trainer['serve_step']} under the JAX names "
+          f"({trainer['checkpoint_vars']} variables)")
+
+    # flash and SSD launches: the serve paths' prefills and the train
+    # step's first step (the kernels' rows); the lse instance runs only on
+    # the train path
+    train_launch = train["launches_per_step"][0]
+    path_launches = {k: serve_launches[k] + train_launch[k]
+                     for k in serve_launches}
+    print(json.dumps({"kernel_launches_by_path": {
+        "serve": serve_launches, "train_step": train_launch,
+        "trainer_uninterrupted_flash":
+            trainer["flash_launches_uninterrupted"]}}))
     on_path = {"deposit_cic": launches, "byte_shuffle_blocks": launches,
-               "flash_attention": serve_launches, "ssd_scan": serve_launches}
+               "flash_attention": path_launches, "ssd_scan": path_launches,
+               "flash_attention_lse": {"flash_attention_lse":
+                                       train_launch["flash_attention"]}}
     for k in kernels:
         k["launches"] = on_path.get(k["name"], launches)[k["name"]]
         k["on_path"] = k["name"] in on_path

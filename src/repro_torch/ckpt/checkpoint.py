@@ -10,6 +10,16 @@ paper's BIT1 checkpoints (.dmp) map onto BP4. A tensor leaf with
 byte-shuffled on its device before the host LZ stage. `parallel_io=W`
 writes through W writer processes (`repro_torch.core.parallel_engine`).
 
+Model trees keep their layers in lists (`layers`, `units`, `first`,
+`self_units`, `cross`: `models.convert.STACKED`), where the JAX package
+stacks them into one array with leading axes [L] or [U, I]. Such a group
+is checkpointed under the JAX package's names, as one variable of global
+shape [L, ...] a leaf (`Stacked`): on the host path the layers are stacked
+one leaf at a time and row-split as the JAX package splits them; with
+`device_compress` each layer's tensor is the chunk at offset (l, 0, ...),
+so nothing is stacked on the device. Either package's reader returns the
+same global arrays, and a restore splits them back into the lists.
+
 A leaf sharded over a device mesh, and the elastic re-sharding restore
 (`restore_sharded`), come with the port's mesh layer (DTensor).
 """
@@ -26,8 +36,30 @@ import torch
 
 from repro_torch.core import compression as C
 from repro_torch.core.bp_engine import BpReader, BpWriter, EngineConfig
+from repro_torch.models.convert import STACKED
 
 SEP = "/"
+
+
+@dataclasses.dataclass
+class Stacked:
+    """One leaf of a group of layers the JAX package stacks: `parts` are
+    the layers' leaves in row-major order over the leading axes `lead`
+    ([L] or [U, I]); the checkpoint variable is [*lead, *part.shape]."""
+    lead: tuple
+    parts: list
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.lead) + tuple(self.parts[0].shape)
+
+    def offset(self, i: int) -> tuple:
+        """The chunk offset of part i in the stacked variable."""
+        idx = np.unravel_index(i, self.lead)
+        return tuple(int(j) for j in idx) + (0,) * self.parts[0].ndim
+
+    def map(self, fn) -> "Stacked":
+        return Stacked(self.lead, [fn(p) for p in self.parts])
 
 
 def _host_leaf(leaf) -> np.ndarray:
@@ -55,13 +87,36 @@ def _restore_leaf(arr: np.ndarray, like):
     return type(like)(arr.reshape(-1)[0])
 
 
+def _layers(obj, depth: int):
+    """The layer subtrees of a nested list `depth` deep, row-major, and
+    the list lengths."""
+    if depth == 0:
+        return [obj], ()
+    subs = [_layers(o, depth - 1) for o in obj]
+    lead = (len(obj),) + (subs[0][1] if subs else ())
+    return [t for sub, _ in subs for t in sub], lead
+
+
+def _is_stacked(k, v) -> bool:
+    return k in STACKED and isinstance(v, list) and len(v) > 0
+
+
 def _walk(prefix: tuple, obj):
     """(path, leaf) pairs in jax.tree_util's order: dict keys sorted,
     NamedTuple fields as ".name" (the str() of jax's GetAttrKey), list and
-    tuple items by index, None an empty subtree."""
+    tuple items by index, None an empty subtree. A group of layers under a
+    `STACKED` key gives one `Stacked` a leaf, named as the JAX package
+    names its stacked array."""
     if isinstance(obj, dict):
         for k in sorted(obj):
-            yield from _walk(prefix + (str(k),), obj[k])
+            if _is_stacked(k, obj[k]):
+                layers, lead = _layers(obj[k], STACKED[k])
+                per = [dict(_walk((), t)) for t in layers]
+                for rel in per[0]:
+                    yield (SEP.join(prefix + (str(k), rel)),
+                           Stacked(lead, [f[rel] for f in per]))
+            else:
+                yield from _walk(prefix + (str(k),), obj[k])
     elif isinstance(obj, tuple) and hasattr(obj, "_fields"):
         for f in obj._fields:
             yield from _walk(prefix + (f".{f}",), getattr(obj, f))
@@ -77,19 +132,37 @@ def flatten_state(state) -> dict[str, Any]:
 
 
 def unflatten_like(like, flat: dict):
-    """Rebuild `like`'s structure with the leaves of `flat` (by name)."""
-    def build(prefix: tuple, obj):
+    """Rebuild `like`'s structure with the leaves of `flat` (by name; a
+    group of layers from its `Stacked` leaves)."""
+    def group(prefix: tuple, obj, depth: int, parts: dict, at: list):
+        if depth == 0:
+            i = at[0]
+            at[0] += 1
+            return build(prefix, obj, {k: v.parts[i] for k, v in
+                                       parts.items()})
+        return [group(prefix, o, depth - 1, parts, at) for o in obj]
+
+    def build(prefix: tuple, obj, src=flat):
         if isinstance(obj, dict):
-            return {k: build(prefix + (str(k),), obj[k]) for k in obj}
+            out = {}
+            for k in obj:
+                if _is_stacked(k, obj[k]):
+                    key = SEP.join(prefix + (str(k),)) + SEP
+                    parts = {n[len(key):]: v for n, v in src.items()
+                             if n.startswith(key)}
+                    out[k] = group((), obj[k], STACKED[k], parts, [0])
+                else:
+                    out[k] = build(prefix + (str(k),), obj[k], src)
+            return out
         if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-            return type(obj)(*(build(prefix + (f".{f}",), getattr(obj, f))
-                               for f in obj._fields))
+            return type(obj)(*(build(prefix + (f".{f}",), getattr(obj, f),
+                                     src) for f in obj._fields))
         if isinstance(obj, (list, tuple)):
-            return type(obj)(build(prefix + (str(i),), v)
+            return type(obj)(build(prefix + (str(i),), v, src)
                              for i, v in enumerate(obj))
         if obj is None:
             return None
-        return flat[SEP.join(prefix)]
+        return src[SEP.join(prefix)]
     return build((), like)
 
 
@@ -167,8 +240,10 @@ def save_checkpoint(directory, state, step: int, *, n_io_ranks: int = 8,
         for k, v in (extra_attrs or {}).items():
             w.set_attribute(k, v)
         for name, leaf in flat.items():
-            if (use_dev and C.is_device_array(leaf) and leaf.ndim > 0
-                    and leaf.dtype != torch.bfloat16):
+            if isinstance(leaf, Stacked):
+                _put_stacked(w, f"state/{name}", leaf, use_dev, n_io_ranks)
+                continue
+            if _device_leaf(leaf, use_dev):
                 # stays a tensor: the engine preconditions it on its device
                 w.put(f"state/{name}", leaf, global_shape=tuple(leaf.shape),
                       offset=(0,) * leaf.ndim, rank=0)
@@ -193,6 +268,31 @@ def save_checkpoint(directory, state, step: int, *, n_io_ranks: int = 8,
     os.rename(tmp, final)
     (directory / "latest.txt").write_text(str(step))
     return final
+
+
+def _device_leaf(leaf, use_dev: bool) -> bool:
+    """Whether `leaf` stays a tensor for the engine's device shuffle."""
+    return (use_dev and C.is_device_array(leaf) and leaf.ndim > 0
+            and leaf.dtype != torch.bfloat16)
+
+
+def _put_stacked(w, var: str, leaf: Stacked, use_dev: bool, n_ranks: int):
+    """A group of layers as the JAX package's stacked variable. Device
+    leaves: layer i is the chunk at (i, 0, ...) (row-major over `lead`),
+    put by rank i mod `n_ranks` so the layers spread over the aggregators.
+    Host leaves: stacked on the host and row-split like any host leaf, so
+    the chunk table is the JAX package's."""
+    gshape = leaf.shape
+    if all(_device_leaf(p, use_dev) for p in leaf.parts):
+        ones = (1,) * len(leaf.lead)
+        for i, part in enumerate(leaf.parts):
+            w.put(var, part.reshape(ones + tuple(part.shape)),
+                  global_shape=gshape, offset=leaf.offset(i),
+                  rank=i % n_ranks)
+        return
+    host = np.stack([_host_leaf(p) for p in leaf.parts]).reshape(gshape)
+    for r, off, chunk in _leaf_chunks(host, n_ranks):
+        w.put(var, chunk, global_shape=gshape, offset=off, rank=r)
 
 
 def list_checkpoints(directory) -> list[int]:
@@ -227,6 +327,12 @@ def restore_checkpoint(directory, like, step: Optional[int] = None,
     with BpReader(checkpoint_path(directory, step),
                   parallel=parallel) as reader:
         for name, leaf in flatten_state(like).items():
-            out[name] = _restore_leaf(reader.read_var(step, f"state/{name}"),
-                                      leaf)
+            arr = reader.read_var(step, f"state/{name}")
+            if isinstance(leaf, Stacked):
+                rows = arr.reshape((-1,) + tuple(leaf.parts[0].shape))
+                out[name] = Stacked(leaf.lead, [
+                    _restore_leaf(rows[i], p)
+                    for i, p in enumerate(leaf.parts)])
+            else:
+                out[name] = _restore_leaf(arr, leaf)
     return unflatten_like(like, out), step

@@ -119,6 +119,8 @@ class CheckpointManager:
         streams = {}
 
         def snap(x):
+            if isinstance(x, CK.Stacked):
+                return x.map(snap)
             if isinstance(x, torch.Tensor):
                 x = x.detach()
                 if self.device_compress:

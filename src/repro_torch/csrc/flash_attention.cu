@@ -10,7 +10,12 @@
 //     m' = max(m, max_j s_j), p_j = exp(s_j - m'), corr = exp(m - m'),
 //     l = l * corr + sum_j p_j,
 //     acc = acc * corr + sum_j bf16(p_j) * v_j  (p rounded to bf16 first);
-//   out_i = bf16(acc / max(l, 1e-30)).
+//   out_i = bf16(acc / max(l, 1e-30)),
+//   and, when an lse pointer is given, lse_i = m + log(max(l, 1e-30)) in
+//   fp32 [B,H,Sq]: the log-sum-exp of the scaled scores in natural units,
+//   as `_flash_fwd_impl` of src/repro/models/attention.py returns it for
+//   the backward (m is kept in the scores' own units; only exp is taken
+//   base 2).
 // Key tiles wholly above the causal diagonal are skipped: every p of such
 // a tile is exactly 0 and its corr exactly 1, so the result is the same.
 // exp is taken as 2^(s c - m log2 e), c = scale log2 e (one FMA and one
@@ -166,7 +171,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, long long qsb, long long qss,
+              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+              long long qsb, long long qss,
               long long qsh, long long ksb, long long kss, long long ksh,
               long long vsb, long long vss, long long vsh, int H, int Sq,
               int Skv, int causal, float scale, int n_qt, int BH) {
@@ -324,6 +330,12 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   // normalise and stage in this warp's own 16 rows of the Q tile: no other
   // warp reads them, and no copy is in flight to them
   const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+  // the four threads of a quad hold the same m and l of their two rows
+  if (lse != nullptr && tq == 0) {
+    float* lrow = lse + (long long)bh * Sq;
+    if (row_a < Sq) lrow[row_a] = m[0] + logf(den[0]);
+    if (row_a + 8 < Sq) lrow[row_a + 8] = m[1] + logf(den[1]);
+  }
   __nv_bfloat16* Ow = Qs + w0 * kS;
 #pragma unroll
   for (int n = 0; n < 2 * kKSteps; ++n) {
@@ -348,7 +360,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const long long* st, int B, int H, int Sq, int Skv, int causal,
            float scale, cudaStream_t stream) {
   // the opt-in above 48 KB of dynamic shared memory, once per device;
@@ -370,7 +382,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_fwd_mma<D><<<(unsigned)blocks, kThreads, Smem<D>::kBytes, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, st[0], st[1], st[2], st[3],
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], H, Sq, Skv, causal, scale, n_qt,
       B * H);
   return (int)cudaGetLastError();
@@ -379,11 +391,13 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q [B,Sq,H,D], k/v [B,Skv,H,D] bf16 with element strides (batch, seq, head)
-// given and a unit stride on D; o contiguous [B,Sq,H,D] bf16. Launches on
+// given and a unit stride on D; o contiguous [B,Sq,H,D] bf16; lse null, or
+// contiguous [B,H,Sq] fp32, written then (the training forward). Launches on
 // `stream` and returns the CUDA error (cudaErrorInvalidValue for an
 // unsupported D or an empty shape).
 extern "C" int jbp_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, long long qsb,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, int B, int H, int Sq, int Skv,
     int D, int causal, float scale, void* stream) {
@@ -391,12 +405,13 @@ extern "C" int jbp_flash_attention_fwd(
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = (float*)lse;
   switch (D) {
-    case 32: return launch<32>(q, k, v, o, st, B, H, Sq, Skv, causal, scale, s);
-    case 64: return launch<64>(q, k, v, o, st, B, H, Sq, Skv, causal, scale, s);
-    case 80: return launch<80>(q, k, v, o, st, B, H, Sq, Skv, causal, scale, s);
-    case 96: return launch<96>(q, k, v, o, st, B, H, Sq, Skv, causal, scale, s);
-    case 128: return launch<128>(q, k, v, o, st, B, H, Sq, Skv, causal, scale, s);
+    case 32: return launch<32>(q, k, v, o, l, st, B, H, Sq, Skv, causal, scale, s);
+    case 64: return launch<64>(q, k, v, o, l, st, B, H, Sq, Skv, causal, scale, s);
+    case 80: return launch<80>(q, k, v, o, l, st, B, H, Sq, Skv, causal, scale, s);
+    case 96: return launch<96>(q, k, v, o, l, st, B, H, Sq, Skv, causal, scale, s);
+    case 128: return launch<128>(q, k, v, o, l, st, B, H, Sq, Skv, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

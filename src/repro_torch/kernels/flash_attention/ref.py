@@ -1,6 +1,7 @@
-"""Plain PyTorch flash attention forward: the JAX package's chunked
-online-softmax oracle (`models/attention.py::_flash_fwd_impl` with
-`_fit_chunk`) rewritten, and the O(S^2) reference.
+"""Plain PyTorch flash attention: the JAX package's chunked online-softmax
+oracle (`models/attention.py::_flash_fwd_impl` with `_fit_chunk`), its
+memory-efficient backward (`_flash_bwd_impl`), both rewritten, and the
+O(S^2) reference.
 
 The plain version rounds the probabilities to v's dtype before the PV
 product and returns q's dtype, as the TPU kernel does
@@ -34,18 +35,30 @@ def flash_attention_plain(q, k, v, *, causal=True, q_chunk=1024,
                           kv_chunk=1024):
     """q/k/v: [B,S,H,D] with H(q) == H(kv) -> out [B,Sq,H,D] in q's dtype.
     fp32 m/l/acc; scores and PV are fp32 products of the input values."""
-    B, Sq, H, D = q.shape
-    Skv = k.shape[1]
-    if k.shape[2] != H:
+    return flash_fwd_plain(q, k, v, causal=causal, q_chunk=q_chunk,
+                           kv_chunk=kv_chunk)[0]
+
+
+def _check_grouping(q, k):
+    if k.shape[2] != q.shape[2]:
         raise ValueError(
             f"flash core is ungrouped; expand KV heads first "
-            f"(q {tuple(q.shape)} has {H} heads, kv {tuple(k.shape)} has "
-            f"{k.shape[2]})")
+            f"(q {tuple(q.shape)} has {q.shape[2]} heads, kv "
+            f"{tuple(k.shape)} has {k.shape[2]})")
+
+
+def flash_fwd_plain(q, k, v, *, causal=True, q_chunk=1024, kv_chunk=1024):
+    """`flash_attention_plain` and the row log-sum-exp of the scaled
+    scores, lse = m + log(max(l, 1e-30)) fp32 [B,H,Sq] (natural units, as
+    `_flash_fwd_impl` returns it)."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    _check_grouping(q, k)
     qc = fit_chunk(Sq, q_chunk)
     kc = fit_chunk(Skv, kv_chunk)
     scale = 1.0 / (D ** 0.5)
     qf, kf = q.float(), k.float()
-    outs = []
+    outs, lses = [], []
     for qi in range(Sq // qc):
         qb = qf[:, qi * qc:(qi + 1) * qc]                          # [B,qc,H,D]
         m = torch.full((B, H, qc), NEG_INF, dtype=torch.float32,
@@ -67,7 +80,51 @@ def flash_attention_plain(q, k, v, *, causal=True, q_chunk=1024,
             m = m_new
         out = (acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
         outs.append(out.transpose(1, 2))                           # [B,qc,H,D]
-    return torch.cat(outs, dim=1)
+        lses.append(m + torch.log(torch.clamp_min(l, 1e-30)))      # [B,H,qc]
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal=True,
+                              q_chunk=1024, kv_chunk=1024):
+    """The JAX package's `_flash_bwd_impl`: recomputes p = exp(s - lse)
+    tile by tile (never the O(S^2) probabilities at once). Products are
+    fp32 products of the inputs' values (bf16 on the model's path); p and
+    ds round to bf16 at the reference's two points. Returns (dq, dk, dv)
+    in q's, k's and v's dtypes."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    _check_grouping(q, k)
+    qc = fit_chunk(Sq, q_chunk)
+    kc = fit_chunk(Skv, kv_chunk)
+    scale = 1.0 / (D ** 0.5)
+    cdt = torch.bfloat16          # the reference's COMPUTE_DTYPE
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = torch.sum(dof * out.float(), dim=-1).transpose(1, 2)  # [B,H,Sq]
+    dk = torch.zeros((B, Skv, H, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, Skv, H, D), dtype=torch.float32, device=q.device)
+    dqs = []
+    for qi in range(Sq // qc):
+        rows = slice(qi * qc, (qi + 1) * qc)
+        qb, dob = qf[:, rows], dof[:, rows]                       # [B,qc,H,D]
+        Li, di = lse[:, :, rows], delta[:, :, rows]               # [B,H,qc]
+        dqi = torch.zeros((B, qc, H, D), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(Skv // kc):
+            cols = slice(ki * kc, (ki + 1) * kc)
+            kb, vb = kf[:, cols], vf[:, cols]
+            s = torch.einsum("bqhd,bkhd->bhqk", qb, kb) * scale
+            if causal:
+                s = s + _causal_bias(qi, ki, qc, kc, q.device)[None, None]
+            p = torch.exp(s - Li[..., None])                      # [B,H,qc,kc]
+            pb = p.to(cdt).float()
+            dv[:, cols] += torch.einsum("bhqk,bqhd->bkhd", pb, dob)
+            dp = torch.einsum("bqhd,bkhd->bhqk", dob, vb)
+            ds = (p * (dp - di[..., None]) * scale).to(cdt).float()
+            dqi += torch.einsum("bhqk,bkhd->bqhd", ds, kb)
+            dk[:, cols] += torch.einsum("bhqk,bqhd->bkhd", ds, qb)
+        dqs.append(dqi)
+    dq = torch.cat(dqs, dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def reference_attention(q, k, v, *, causal=True):

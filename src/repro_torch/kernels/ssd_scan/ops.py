@@ -5,7 +5,13 @@ goes to the kernel (`csrc/ssd_scan.cu`), a CPU tensor to the plain version
 
 Zero padding is exact for the final state: a padded step has dt = 0, so it
 neither decays nor updates the state. So unlike `ssd_chunked`, this wrapper
-takes any s (a prompt of 520 tokens runs as 5 chunks of 128)."""
+takes any s (a prompt of 520 tokens runs as 5 chunks of 128).
+
+With grad enabled and an input that requires it, the padded call goes
+through `SsdScan`, a `torch.autograd.Function` whose forward is the same
+kernel (or plain version) and whose backward recomputes the plain
+`ssd_chunked` on the same padded inputs and differentiates it: the JAX
+package differentiates `ssd_chunked` by autodiff (`models/ssm.py`)."""
 from __future__ import annotations
 
 import ctypes
@@ -87,12 +93,53 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = DEFAULT_CHUNK,
         dt = F.pad(dt, (0, 0, 0, pad))
         B = F.pad(B, (0, 0, 0, pad))
         C = F.pad(C, (0, 0, 0, pad))
-    if x.is_cuda:
-        y, final = _kernel(x, dt, A, B, C, D, chunk, initial_state)
+    args = (x, dt, A, B, C, D, initial_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args):
+        y, final = SsdScan.apply(chunk, *args)
     else:
-        y, final = ssd_chunked(x, dt, A, B, C, D, chunk=chunk,
-                               initial_state=initial_state)
+        y, final = _forward(chunk, *args)
     return (y[:, :s] if pad else y), final
 
 
 ssd_scan.launches = 0
+
+
+def _forward(chunk, x, dt, A, B, C, D, initial_state):
+    """The kernel on a CUDA tensor, the plain version on a CPU one, on
+    inputs already padded to whole chunks."""
+    if x.is_cuda:
+        return _kernel(x, dt, A, B, C, D, chunk, initial_state)
+    return ssd_chunked(x, dt, A, B, C, D, chunk=chunk,
+                       initial_state=initial_state)
+
+
+class SsdScan(torch.autograd.Function):
+    """The scan of padded inputs with a gradient: the forward is
+    `_forward`; the backward runs `ssd_chunked` again on the saved inputs
+    under autograd and returns its gradients."""
+
+    @staticmethod
+    def forward(ctx, chunk, x, dt, A, B, C, D, initial_state):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)     # an unused final state: None
+        ctx.save_for_backward(x, dt, A, B, C, D, initial_state)
+        return _forward(chunk, x, dt, A, B, C, D, initial_state)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        saved = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need) if t is not None else None
+                  for t, need in zip(saved, ctx.needs_input_grad[1:])]
+        with torch.enable_grad():
+            y, final = ssd_chunked(*inputs[:6], chunk=ctx.chunk,
+                                   initial_state=inputs[6])
+        wrt = [t for t in inputs if t is not None and t.requires_grad]
+        pairs = [(o, g) for o, g in ((y, dy), (final, dfinal))
+                 if g is not None]
+        if not pairs:
+            return (None,) * 8
+        outs, grads = zip(*pairs)
+        got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
+        return (None, *(next(got) if t is not None and t.requires_grad
+                        else None for t in inputs))

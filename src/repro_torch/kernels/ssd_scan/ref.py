@@ -8,6 +8,16 @@ import torch
 COMPUTE_DTYPE = torch.bfloat16
 
 
+def _masked_decay(cs, tri):
+    """L[b,l,s,h] = exp(cs_l - cs_s) where l >= s, else 0. The mask is
+    applied before the exp: above the diagonal cs_l - cs_s > 0 can overflow
+    to inf, and the JAX package's `where(tri, exp(diff), 0)` then has a NaN
+    gradient (0 * inf) though its value is right. The values are the
+    same."""
+    diff = cs[:, :, None, :] - cs[:, None, :, :]
+    return torch.exp(torch.where(tri[None, :, :, None], diff, -torch.inf))
+
+
 def ssd_chunked(x, dt, A, B, C, D, *, chunk=128, initial_state=None):
     """Chunked SSD scan. x:[b,s,h,p] dt:[b,s,h] (>=0) A:[h] (<0)
     B/C:[b,s,n] D:[h]. Returns (y [b,s,h,p] bf16, final_state [b,h,p,n]
@@ -43,8 +53,7 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk=128, initial_state=None):
         # intra-chunk: masked decay matmul; L = exp of the difference, never
         # exp(cs_l) / exp(cs_s), which underflows
         scores = torch.einsum("bln,bsn->bls", Cq, Bq)            # [b,l,s]
-        diff = cs[:, :, None, :] - cs[:, None, :, :]             # [b,l,s,h]
-        L = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
+        L = _masked_decay(cs, tri)                               # [b,l,s,h]
         y = torch.einsum("blsh,bshp->blhp", scores[..., None] * L, xdt)
 
         # contribution of the carried state
@@ -98,8 +107,7 @@ def ssd_chunked_split(x, dt, A, B, C, D, *, chunk=128, initial_state=None):
         cs = torch.cumsum(dtq * A, dim=1)                        # [b,q,h]
         total = cs[:, -1]
         G = torch.einsum("bln,bsn->bls", Cq, Bq)
-        diff = cs[:, :, None, :] - cs[:, None, :, :]             # [b,l,s,h]
-        L = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
+        L = _masked_decay(cs, tri)                               # [b,l,s,h]
         Mp = G[..., None] * L * dtq[:, None, :, :]
         y = torch.einsum("bln,bhpn->blhp", Cq, split_bf16(state)) \
             * torch.exp(cs)[..., None]

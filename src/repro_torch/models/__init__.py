@@ -1,2 +1,2 @@
 """LM scaffolding of the port: layers, attention, Mamba2, the family
-stacks and the top-level model (inference only)."""
+stacks and the top-level model, with the loss for training."""

@@ -1,10 +1,11 @@
-"""GQA attention: flash (online softmax) for prefill, cached decode. The
-port of the JAX package's `models/attention.py`, forward only.
+"""GQA attention: flash (online softmax) for training and prefill, cached
+decode. The port of the JAX package's `models/attention.py`.
 
-Prefill goes through `kernels/flash_attention/ops.py`: the hand-written
-CUDA kernel on the card, on the CPU the plain version, which is the JAX
-package's chunked oracle `_flash_fwd_impl` (re-exported here as
-`flash_attention_plain`). One card means no `model` axis, so the JAX
+Training and prefill go through `kernels/flash_attention/ops.py`: the
+hand-written CUDA kernel on the card, on the CPU the plain version, which
+is the JAX package's chunked oracle `_flash_fwd_impl` (re-exported here as
+`flash_attention_plain`); with grad enabled the wrapper's autograd Function
+adds the backward of `_flash_bwd_impl`. One card means no `model` axis, so the JAX
 code's shard hints are dropped and the padded head count equals H.
 """
 from __future__ import annotations
@@ -88,6 +89,24 @@ def _project_qkv(p, x, kv_x, cfg, positions, kv_positions, *, rope=True):
     return q, k, v
 
 
+def _expand_kv(t, cfg):
+    """[B,S,Hkv,D] -> [B,S,H,D], query head h reading kv head
+    min(h // (H // Hkv), Hkv - 1) (the JAX package's `kv_map`). Where Hkv
+    divides H that is each kv head repeated H // Hkv times, done as an
+    expand and a reshape, whose backward is a sum (deterministic on the
+    card, where the backward of `index_select` adds with atomics)."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if H == Hkv:        # no grouping: the expansion would copy k and v
+        return t
+    B, S, _, D = t.shape
+    if H % Hkv == 0:
+        return t[:, :, :, None].expand(B, S, Hkv, H // Hkv, D).reshape(
+            B, S, H, D)
+    kv_map = torch.clamp(torch.arange(H, device=t.device) // (H // Hkv),
+                         max=Hkv - 1)
+    return t.index_select(2, kv_map)
+
+
 def attention_block(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
                     causal=True, rope=True, q_chunk=1024, kv_chunk=1024):
     """Full-sequence attention (prefill): causal self-attention, or, with
@@ -102,14 +121,7 @@ def attention_block(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
     kv_positions = positions if kv_positions is None else kv_positions
     q, k, v = _project_qkv(p, x, kv_x, cfg, positions, kv_positions,
                            rope=rope)
-    H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    if H == Hkv:        # no grouping: the expansion would copy k and v
-        k_exp, v_exp = k, v
-    else:
-        kv_map = torch.clamp(torch.arange(H, device=x.device) // (H // Hkv),
-                             max=Hkv - 1)
-        k_exp = k.index_select(2, kv_map)
-        v_exp = v.index_select(2, kv_map)
+    k_exp, v_exp = _expand_kv(k, cfg), _expand_kv(v, cfg)
     o = flash_ops.flash_attention(q, k_exp, v_exp, causal=causal,
                                   qc=q_chunk, kc=kv_chunk)
     y = _out_proj(p["wo"], o)

@@ -15,7 +15,7 @@ from repro_torch._device import resolve_device
 #: are unstacked into (nested) lists (`first`: the moe family's dense first
 #: layers; `self_units` and `cross`: the vlm family's [U, I-1] self layers
 #: and [U] cross layers)
-_STACKED = {"layers": 1, "units": 2, "first": 1, "self_units": 2, "cross": 1}
+STACKED = {"layers": 1, "units": 2, "first": 1, "self_units": 2, "cross": 1}
 
 
 def _tensor(a, dev) -> torch.Tensor:
@@ -46,7 +46,7 @@ def _unstack(tree, depth, dev):
 
 def _convert(tree, dev):
     if isinstance(tree, dict):
-        return {k: (_unstack(v, _STACKED[k], dev) if k in _STACKED
+        return {k: (_unstack(v, STACKED[k], dev) if k in STACKED
                     else _convert(v, dev)) for k, v in tree.items()}
     return _tensor(tree, dev)
 

@@ -1,9 +1,10 @@
 """Top-level LM: embeddings -> family stack -> final norm -> logits. The
-port of the JAX package's `models/model.py`, inference only:
+port of the JAX package's `models/model.py`:
     init_params(cfg, seed, device=...)              -> params (nested dicts)
     forward(params, cfg, batch, ...)                -> (logits, aux)
     prefill(params, cfg, batch, ...)                -> (logits, cache)
     decode_step(params, cfg, token, cache, length)  -> (logits, cache)
+    loss_fn(params, cfg, batch, ...)                -> (loss, metrics)
     make_decode_cache_spec / init_decode_cache
 """
 from __future__ import annotations
@@ -83,7 +84,10 @@ def count_params_analytic(cfg, active_only: bool = False) -> int:
 
 # ---------------------------------------------------------------- forward
 def _embed_inputs(params, cfg, batch):
-    x = embed(params["embed"], batch["tokens"])
+    if batch.get("embeds") is not None:          # the audio family
+        x = batch["embeds"].to(COMPUTE_DTYPE)
+    else:
+        x = embed(params["embed"], batch["tokens"])
     B, S = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
@@ -96,17 +100,18 @@ def _head(params, cfg):
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
-def forward(params, cfg, batch, *, with_cache=False, q_chunk=1024,
-            kv_chunk=1024, ssd_chunk=128):
-    """batch: {tokens, positions?, vision_embeds? [B,Tv,d] (vlm)}. Causal
-    full-sequence pass; logits are fp32 [B,S,V]."""
+def forward(params, cfg, batch, *, remat=False, with_cache=False,
+            q_chunk=1024, kv_chunk=1024, ssd_chunk=128):
+    """batch: {tokens | embeds [B,S,d] (audio), positions?, vision_embeds?
+    [B,Tv,d] (vlm)}. Causal full-sequence pass; logits are fp32 [B,S,V].
+    `remat` checkpoints the stack's layer bodies (training)."""
     x, positions = _embed_inputs(params, cfg, batch)
     kw = {}
     if cfg.family == "vlm":
         kw["vision_embeds"] = batch["vision_embeds"].to(COMPUTE_DTYPE)
     x, aux, cache = stack_for(cfg).seq(
-        params["stack"], x, cfg, positions=positions, with_cache=with_cache,
-        q_chunk=q_chunk, kv_chunk=kv_chunk, ssd_chunk=ssd_chunk, **kw)
+        params["stack"], x, cfg, positions=positions, remat=remat,
+        with_cache=with_cache, q_chunk=q_chunk, kv_chunk=kv_chunk, ssd_chunk=ssd_chunk, **kw)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(_head(params, cfg), x)
     return (logits, aux, cache) if with_cache else (logits, aux)
@@ -124,6 +129,34 @@ def decode_step(params, cfg, token, cache, cache_len: int):
     x, cache = stack_for(cfg).step(params["stack"], x, cache, cache_len, cfg)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(_head(params, cfg), x), cache
+
+
+# ------------------------------------------------------------------- loss
+def loss_fn(params, cfg, batch, *, remat=True, aux_weight=0.01,
+            q_chunk=1024, kv_chunk=1024, ssd_chunk=128):
+    """Next-token cross-entropy; batch needs `labels` [B,S] (-100 =
+    ignore). fp32 log-sum-exp, the gold logit as a one-hot compare-select-
+    sum (as the JAX package computes it), mean over the valid tokens, plus
+    `aux_weight` times the stack's aux loss (the moe family's router
+    load-balance loss). Returns (loss, metrics) with the loss a 0-d
+    tensor."""
+    logits, aux = forward(params, cfg, batch, remat=remat, q_chunk=q_chunk,
+                          kv_chunk=kv_chunk, ssd_chunk=ssd_chunk)
+    labels = batch["labels"]
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    vocab_iota = torch.arange(logits.shape[-1], dtype=safe.dtype,
+                              device=logits.device)
+    onehot = (safe[..., None] == vocab_iota).to(logits.dtype)
+    gold = torch.sum(logits * onehot, dim=-1)
+    nll = (logz - gold) * valid
+    denom = torch.clamp_min(valid.sum(), 1)
+    ce = nll.sum() / denom
+    total = ce + aux_weight * aux
+    return total, {"loss": total, "ce": ce, "aux": aux,
+                   "tokens": denom.float()}
 
 
 def make_decode_cache_spec(cfg, B, S):

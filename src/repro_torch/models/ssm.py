@@ -1,10 +1,11 @@
 """Mamba2 (SSD, state-space duality) block, the port of the JAX package's
-`models/ssm.py`, forward only.
+`models/ssm.py`.
 
-The prefill (`mamba2_seq`) runs the chunked scan through
+The full-sequence pass (`mamba2_seq`, training and prefill) runs the chunked scan through
 `kernels/ssd_scan/ops.py`: the hand-written CUDA kernel on the card, on the
 CPU the plain `ssd_chunked` (the JAX package's oracle, re-exported here
-with `ssd_recurrent_reference`). Decode (`mamba2_step`) is one recurrent
+with `ssd_recurrent_reference`); with grad enabled the wrapper's autograd
+Function differentiates `ssd_chunked`, as the JAX package does. Decode (`mamba2_step`) is one recurrent
 step in plain PyTorch, as in the JAX package. Projections and convs are
 stored split (z / x / B / C / dt), as there.
 """

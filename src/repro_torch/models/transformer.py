@@ -11,12 +11,18 @@ The JAX package scans over stacked params; here the layers are a Python
 loop over lists (`params_from_numpy` unstacks), while the decode cache keeps
 the JAX package's stacked layout ([L, ...] or [U, I, ...]), so the two
 caches compare leaf by leaf. Decode writes the cache in place.
+
+`seq(..., remat=True)` checkpoints the bodies the JAX package wraps in
+`_maybe_remat` (each layer; for the hybrid and vlm families each unit
+around its own checkpointed inner layers) with `torch.utils.checkpoint`:
+their activations are recomputed in the backward instead of kept.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm
 from repro_torch.models.attention import (attention_block, decode_attention,
@@ -156,6 +162,18 @@ def _zero_aux(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _maybe_remat(fn, remat: bool):
+    """`fn`, or `fn` under activation checkpointing (the JAX package's
+    `jax.checkpoint`): only its inputs are kept, and its forward runs again
+    in the backward."""
+    if not remat:
+        return fn
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
+
+
 # ===========================================================================
 # Family: dense / audio  (uniform stack of dense blocks)
 # ===========================================================================
@@ -167,12 +185,12 @@ class DenseStack:
                            for _ in range(cfg.n_layers)]}
 
     @staticmethod
-    def seq(p, x, cfg, *, positions, with_cache=False, q_chunk=1024,
-            kv_chunk=1024, **_):
+    def seq(p, x, cfg, *, positions, remat=False, with_cache=False,
+            q_chunk=1024, kv_chunk=1024, **_):
         ks, vs = [], []
+        body = _maybe_remat(dense_block_seq, remat)
         for layer_p in p["layers"]:
-            x, (k, v) = dense_block_seq(layer_p, x, cfg, positions, q_chunk,
-                                        kv_chunk)
+            x, (k, v) = body(layer_p, x, cfg, positions, q_chunk, kv_chunk)
             if with_cache:
                 ks.append(k)
                 vs.append(v)
@@ -206,19 +224,19 @@ class MoeStack:
         return p
 
     @staticmethod
-    def seq(p, x, cfg, *, positions, with_cache=False, q_chunk=1024,
-            kv_chunk=1024, **_):
+    def seq(p, x, cfg, *, positions, remat=False, with_cache=False,
+            q_chunk=1024, kv_chunk=1024, **_):
         first, moe = ([], []), ([], [])
+        fbody = _maybe_remat(dense_block_seq, remat)
+        body = _maybe_remat(moe_block_seq, remat)
         for layer_p in p.get("first", ()):
-            x, kv = dense_block_seq(layer_p, x, cfg, positions, q_chunk,
-                                    kv_chunk)
+            x, kv = fbody(layer_p, x, cfg, positions, q_chunk, kv_chunk)
             if with_cache:
                 first[0].append(kv[0])
                 first[1].append(kv[1])
         aux = _zero_aux(x)
         for layer_p in p["layers"]:
-            x, kv, a = moe_block_seq(layer_p, x, cfg, positions, q_chunk,
-                                     kv_chunk)
+            x, kv, a = body(layer_p, x, cfg, positions, q_chunk, kv_chunk)
             aux = aux + a
             if with_cache:
                 moe[0].append(kv[0])
@@ -261,10 +279,11 @@ class SsmStack:
                            for _ in range(cfg.n_layers)]}
 
     @staticmethod
-    def seq(p, x, cfg, *, with_cache=False, ssd_chunk=128, **_):
+    def seq(p, x, cfg, *, remat=False, with_cache=False, ssd_chunk=128, **_):
         states, tails = [], []
+        body = _maybe_remat(ssm_block_seq, remat)
         for layer_p in p["layers"]:
-            x, st, tl = ssm_block_seq(layer_p, x, cfg, ssd_chunk)
+            x, st, tl = body(layer_p, x, cfg, ssd_chunk)
             if with_cache:
                 states.append(st)
                 tails.append(tl)
@@ -298,19 +317,26 @@ class HybridStack:
                                            dtype=dtype)}
 
     @staticmethod
-    def seq(p, x, cfg, *, positions, with_cache=False, q_chunk=1024,
-            kv_chunk=1024, ssd_chunk=128, **_):
+    def seq(p, x, cfg, *, positions, remat=False, with_cache=False,
+            q_chunk=1024, kv_chunk=1024, ssd_chunk=128, **_):
         shared = p["shared"]
-        units, ks, vs = [], [], []
-        for unit_p in p["units"]:
+        inner = _maybe_remat(ssm_block_seq, remat)
+
+        def unit(unit_p, x):
+            # nested remat: a unit's backward holds one Mamba2 layer at a
+            # time
             states, tails = [], []
             for lp in unit_p:
-                x, st, tl = ssm_block_seq(lp, x, cfg, ssd_chunk)
-                if with_cache:
-                    states.append(st)
-                    tails.append(tl)
-            x, (k, v) = dense_block_seq(shared, x, cfg, positions, q_chunk,
-                                        kv_chunk)
+                x, st, tl = inner(lp, x, cfg, ssd_chunk)
+                states.append(st)
+                tails.append(tl)
+            x, kv = dense_block_seq(shared, x, cfg, positions, q_chunk,
+                                    kv_chunk)
+            return x, states, tails, kv
+
+        units, ks, vs = [], [], []
+        for unit_p in p["units"]:
+            x, states, tails, (k, v) = _maybe_remat(unit, remat)(unit_p, x)
             if with_cache:
                 units.append(_stack_ssm_caches(states, tails))
                 ks.append(k)
@@ -398,19 +424,26 @@ class VlmStack:
         return {"self_units": units, "cross": cross}      # [U][I-1], [U]
 
     @staticmethod
-    def seq(p, x, cfg, *, positions, vision_embeds, with_cache=False,
-            q_chunk=1024, kv_chunk=1024, **_):
+    def seq(p, x, cfg, *, positions, vision_embeds, remat=False,
+            with_cache=False, q_chunk=1024, kv_chunk=1024, **_):
+        inner = _maybe_remat(dense_block_seq, remat)
+
+        def unit(unit_p, cross_p, x):
+            # nested remat: a unit's backward holds one layer's internals
+            kvs = []
+            for lp in unit_p:
+                x, kv = inner(lp, x, cfg, positions, q_chunk, kv_chunk)
+                kvs.append(kv)
+            x, ckv = cross_block_seq(cross_p, x, vision_embeds, cfg,
+                                     positions)
+            return x, kvs, ckv
+
         ks, vs, cks, cvs = [], [], [], []
         for unit_p, cross_p in zip(p["self_units"], p["cross"]):
-            for lp in unit_p:
-                x, (k, v) = dense_block_seq(lp, x, cfg, positions, q_chunk,
-                                            kv_chunk)
-                if with_cache:
-                    ks.append(k)
-                    vs.append(v)
-            x, (ck, cv) = cross_block_seq(cross_p, x, vision_embeds, cfg,
-                                          positions)
+            x, kvs, (ck, cv) = _maybe_remat(unit, remat)(unit_p, cross_p, x)
             if with_cache:
+                ks += [k for k, _ in kvs]
+                vs += [v for _, v in kvs]
                 cks.append(ck)
                 cvs.append(cv)
         cache = None

@@ -2,7 +2,10 @@
 the JAX package's `flatten_state` does, a checkpoint written by either
 restores bit for bit in the other, and the port's example writes a series
 the JAX package reads. Then the port's CheckpointManager, case by case as
-the JAX package's tests hold its own, and across the packages."""
+the JAX package's tests hold its own, and across the packages. Last, model
+and train-state trees: the port's per-layer lists are checkpointed as the
+JAX package's stacked variables, so trainers and the serve launcher of
+either package resume from the other's checkpoints."""
 import shutil
 
 import jax
@@ -326,3 +329,207 @@ def test_checkpoint_of_either_manager_restores_in_the_other(tmpdir_path,
         assert sorted(got) == sorted(flat)
         for k, v in flat.items():
             np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+# ------------------------------------------------------ model and train state
+def _model_pair(arch):
+    from repro.configs.base import get_config as jget
+    from repro.configs.base import reduce_for_smoke as jreduce
+    from repro.models import model as JM
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.models.convert import params_from_numpy
+    jcfg, cfg = jreduce(jget(arch)), reduce_for_smoke(get_config(arch))
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(cfg, jax.tree_util.tree_map(np.asarray, jp),
+                           device="cpu")
+    return jcfg, cfg, jp, tp
+
+
+def _assert_tree_equals_jax(port_tree, jax_tree):
+    """Each of the port's leaves (a group of layers stacked) equals the
+    JAX package's leaf of the same name: dtype, shape and bits."""
+    want = {k: np.asarray(v) for k, v in jckpt.flatten_state(jax_tree).items()}
+    got = ckpt.flatten_state(port_tree)
+    assert list(got) == list(want)
+    for name, leaf in got.items():
+        parts = leaf.parts if isinstance(leaf, ckpt.Stacked) else [leaf]
+        t = torch.stack([p.detach() for p in parts]).reshape(
+            want[name].shape) if isinstance(leaf, ckpt.Stacked) else leaf
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+            w = want[name].astype(np.float32)
+        else:
+            w = want[name]
+        assert tuple(t.shape) == w.shape, name
+        assert str(t.numpy().dtype) == str(w.dtype), name
+        np.testing.assert_array_equal(t.numpy(), w, err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "zamba2-2.7b",
+                                  "deepseek-moe-16b",
+                                  "llama-3.2-vision-90b"])
+def test_model_variable_names_and_shapes_match_jax(arch):
+    """flatten_state of the port's params gives the JAX package's names;
+    each group of layers is one `Stacked` leaf of the stacked shape."""
+    jcfg, cfg, jp, tp = _model_pair(arch)
+    jflat = jckpt.flatten_state({"params": jp})
+    tflat = ckpt.flatten_state({"params": tp})
+    assert list(tflat) == list(jflat)
+    for name, leaf in tflat.items():
+        assert tuple(leaf.shape) == tuple(jflat[name].shape), name
+    back = ckpt.unflatten_like({"params": tp}, tflat)
+    assert back["params"]["stack"] is not tp["stack"]
+    for a, b in zip(ckpt.flatten_state(back).values(), tflat.values()):
+        pa = a.parts if isinstance(a, ckpt.Stacked) else [a]
+        pb = b.parts if isinstance(b, ckpt.Stacked) else [b]
+        assert all(x is y for x, y in zip(pa, pb))
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "zamba2-2.7b",
+                                  "deepseek-moe-16b",
+                                  "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("device_compress", [False, True])
+def test_model_checkpoint_crosses_the_packages(tmpdir_path, arch,
+                                               device_compress):
+    """The port's params restore in the JAX package bit for bit (and the
+    port's own restore too), with the host path (stacked on the host and
+    row-split as the JAX package splits it) and with the device codec
+    path (each layer a chunk of the stacked variable); the JAX package's
+    params restore in the port's lists."""
+    jcfg, cfg, jp, tp = _model_pair(arch)
+    from repro_torch.models import model as M
+    ckpt.save_checkpoint(tmpdir_path / "port", {"params": tp}, 5,
+                         n_io_ranks=4,
+                         engine_config=EngineConfig(codec="blosc"),
+                         device_compress=device_compress)
+    jlike = jax.tree_util.tree_map(np.asarray, {"params": jp})
+    back, step = jckpt.restore_checkpoint(tmpdir_path / "port", jlike)
+    assert step == 5
+    _assert_tree_equals_jax({"params": tp}, back)
+    like = {"params": M.init_params(cfg, 7, device="cpu")}
+    mine, _ = ckpt.restore_checkpoint(tmpdir_path / "port", like)
+    _assert_tree_equals_jax(mine, {"params": jp})
+    jckpt.save_checkpoint(tmpdir_path / "jax", {"params": jp}, 6,
+                          n_io_ranks=4,
+                          engine_config=JEngineConfig(codec="blosc"))
+    theirs, step = ckpt.restore_checkpoint(tmpdir_path / "jax", like)
+    assert step == 6
+    _assert_tree_equals_jax(theirs, {"params": jp})
+
+
+def test_stacked_host_chunks_are_the_jax_packages(tmpdir_path):
+    """On the host path a stacked variable's chunk table is the JAX
+    package's: the same offsets, ranks and extents."""
+    from repro.core.bp_engine import BpReader as JReader
+    _, _, jp, tp = _model_pair("zamba2-2.7b")
+    ckpt.save_checkpoint(tmpdir_path / "p", {"params": tp}, 1, n_io_ranks=4)
+    jckpt.save_checkpoint(tmpdir_path / "j", {"params": jp}, 1, n_io_ranks=4)
+    name = "state/params/stack/units/mamba/wx/w"
+    tables = []
+    for d in ("p", "j"):
+        with JReader(ckpt.checkpoint_path(tmpdir_path / d, 1)) as r:
+            tables.append([(c.offset, c.extent, c.rank)
+                           for c in r.iter_chunks(1, name)])
+    assert tables[0] == tables[1] and len(tables[0]) == 2
+
+
+@pytest.fixture(scope="module")
+def jax_trainer_ckpt():
+    """A JAX package's Trainer run to step 2 (checkpoints every 2) and
+    its continuation to step 3 in a copy of the directory, so the
+    port can resume from the step-2 checkpoint."""
+    import pathlib
+    import tempfile
+    from repro.configs.base import get_config as jget
+    from repro.configs.base import reduce_for_smoke as jreduce
+    from repro.optim.adamw import AdamWConfig as JHP
+    from repro.train.trainer import Trainer as JTrainer
+    from repro.train.trainer import TrainerConfig as JTC
+    root = pathlib.Path(tempfile.mkdtemp(prefix="repro-torch-jtrainer-"))
+    jcfg = jreduce(jget("smollm-360m"))
+    hp = JHP(lr=1e-3, warmup_steps=1, total_steps=3)
+    tc = dict(log_every=1, ckpt_every=2, seq_len=32, global_batch=4)
+    JTrainer(jcfg, JTC(steps=2, **tc), hp, root / "a").run()
+    shutil.copytree(root / "a", root / "b")
+    cont = JTrainer(jcfg, JTC(steps=3, **tc), hp, root / "b").run()
+    yield {"dir": root / "a", "tc": tc, "cont": cont, "jcfg": jcfg}
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def test_jax_trainer_checkpoint_resumes_in_the_port_trainer(
+        jax_trainer_ckpt, tmpdir_path):
+    """The port's Trainer resumes from the JAX Trainer's step-2 checkpoint
+    (params, m, v and step under the JAX names) and its step-3 loss
+    matches the JAX continuation's within 1e-3 (the loss_fn tolerance:
+    bf16 rounding and XLA's sum orders)."""
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    d = tmpdir_path / "ck"
+    shutil.copytree(jax_trainer_ckpt["dir"], d)
+    cfg = reduce_for_smoke(get_config("smollm-360m"))
+    tr = Trainer(cfg, TrainerConfig(steps=3, **jax_trainer_ckpt["tc"]),
+                 AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3), d,
+                 device="cpu", async_write=False)
+    out = tr.run()
+    assert [h["step"] for h in out["history"]] == [3]
+    want = jax_trainer_ckpt["cont"]["history"][-1]
+    assert want["step"] == 3
+    assert abs(out["history"][0]["loss"] - want["loss"]) < 1e-3
+    np.testing.assert_allclose(out["history"][0]["lr"], want["lr"],
+                               rtol=1e-6)
+    assert int(out["state"]["step"]) == 3
+
+
+def test_port_trainer_checkpoint_restores_in_the_jax_manager(tmpdir_path):
+    """A port Trainer's checkpoint restores in the JAX package's
+    CheckpointManager with arrays equal to the port's state."""
+    from repro.configs.base import get_config as jget
+    from repro.configs.base import reduce_for_smoke as jreduce
+    from repro.ckpt.manager import CheckpointManager as JCheckpointManager
+    from repro.train.state import init_train_state as jinit
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = reduce_for_smoke(get_config("zamba2-2.7b"))
+    out = Trainer(cfg, TrainerConfig(steps=2, ckpt_every=2, seq_len=32,
+                                     global_batch=2, log_every=1),
+                  AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2),
+                  tmpdir_path, device="cpu", device_compress=True).run()
+    jlike = jax.tree_util.tree_map(
+        np.asarray, jinit(jreduce(jget("zamba2-2.7b")),
+                          jax.random.PRNGKey(1)))
+    back, step = JCheckpointManager(tmpdir_path).restore_latest(jlike)
+    assert step == 2
+    assert int(np.asarray(back["step"])) == 2
+    _assert_tree_equals_jax(out["state"], back)
+
+
+def test_serve_launcher_serves_a_jax_trainer_checkpoint(jax_trainer_ckpt,
+                                                        capsys):
+    """`repro_torch.launch.serve --ckpt-dir` on the JAX Trainer's
+    checkpoint: it restores the params and generates the tokens the port's
+    engine gives for the JAX package's params of that step."""
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro.models import model as JM
+    d = jax_trainer_ckpt["dir"]
+    toks = serve.main(["--arch", "smollm-360m", "--smoke", "--device", "cpu",
+                       "--ckpt-dir", str(d), "--batch", "2",
+                       "--prompt-len", "8", "--new-tokens", "4",
+                       "--max-seq", "16"])
+    assert "restored checkpoint step 2" in capsys.readouterr().out
+    like = {"params": jax.tree_util.tree_map(
+        np.asarray, JM.init_params(jax_trainer_ckpt["jcfg"],
+                                   jax.random.PRNGKey(3)))}
+    jparams, step = jckpt.restore_checkpoint(d, like)
+    assert step == 2
+    cfg = reduce_for_smoke(get_config("smollm-360m"))
+    eng = ServeEngine(cfg, params_from_numpy(cfg, jparams["params"],
+                                             device="cpu"),
+                      ServeConfig(max_batch=2, max_seq=16, max_new_tokens=4))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    np.testing.assert_array_equal(toks, eng.generate(prompts, new_tokens=4))

@@ -581,3 +581,139 @@ def test_parallel_device_checkpoint_payloads_equal_the_serial_engines(
     assert serial.keys() == parallel.keys()
     for key, payload in serial.items():
         assert parallel[key] == payload, key
+
+
+# -------------------------------------------------------------------- training
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_lse_matches_plain_version(cuda_device, D, causal):
+    """The kernel's lse (natural log-sum-exp of the scaled scores, fp32
+    [B,H,S]) against the plain version's within 1e-3 (fp32 sums in
+    another order; a log in base 2 or of unscaled scores is off by tens of
+    percent); its output bit-equal to the serving call's (lse null)."""
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_plain
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(D + 7 * causal)
+    B, S, H = 2, 200, 3
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=cuda_device)
+               .bfloat16() for _ in range(3))
+    before = fops.flash_attention.launches
+    out, lse = fops.flash_forward(q, k, v, causal=causal)
+    assert fops.flash_attention.launches == before + 1
+    ref, lref = flash_fwd_plain(q, k, v, causal=causal, q_chunk=256,
+                                kv_chunk=256)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    assert float((lse - lref).abs().max()) < 1e-3
+    assert flash_err(out, ref) <= 1
+    assert torch.equal(out, fops.flash_attention(q, k, v, causal=causal))
+
+
+def _flash_grads(q, k, v, do, fn, **kw):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    fn(q, k, v, **kw).backward(do)
+    return q.grad, k.grad, v.grad
+
+
+class _PlainForwardFlash(fops.FlashAttention):
+    """The Function with the plain forward: the same backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, qc, kc):
+        from repro_torch.kernels.flash_attention.ref import flash_fwd_plain
+        out, lse = flash_fwd_plain(q, k, v, causal=causal, q_chunk=qc,
+                                   kv_chunk=kc)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, qc, kc)
+        return out
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,D,causal", [
+    (2, 256, 256, 4, 80, True), (2, 256, 256, 4, 64, True),
+    (2, 128, 320, 4, 128, False)])
+def test_flash_gradients_kernel_forward_vs_plain_forward(
+        cuda_device, B, Sq, Skv, H, D, causal):
+    """Gradients through the autograd Function with the kernel's forward
+    (out and lse) against the same Function with the plain forward, the
+    backward being `flash_attention_bwd_plain` in both. The noise floor is
+    the plain forward chunked two ways (128 and 64 rows): the kernel's
+    gradients within 2 floors, or 2 bf16 ulps of their largest value."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(Sq + Skv + D)
+    q = torch.randn((B, Sq, H, D), generator=g, device=cuda_device).bfloat16()
+    k, v = (torch.randn((B, Skv, H, D), generator=g, device=cuda_device)
+            .bfloat16() for _ in range(2))
+    do = torch.randn((B, Sq, H, D), generator=g,
+                     device=cuda_device).bfloat16()
+    kw = dict(causal=causal)
+
+    def plain(qc):
+        return lambda q, k, v, causal: _PlainForwardFlash.apply(
+            q, k, v, causal, qc, qc)
+    before = fops.flash_attention.launches
+    got = _flash_grads(q, k, v, do, fops.flash_attention, qc=128, kc=128,
+                       **kw)
+    assert fops.flash_attention.launches == before + 1   # none backward
+    ref = _flash_grads(q, k, v, do, plain(128), **kw)
+    alt = _flash_grads(q, k, v, do, plain(64), **kw)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, ref, alt):
+        err = float((a.float() - b.float()).abs().max())
+        floor = float((c.float() - b.float()).abs().max())
+        top = float(b.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(max(top, 2.0 ** -126))) - 7)
+        assert err <= max(2 * floor, 2 * ulp), (err, floor, top)
+
+
+@pytest.mark.parametrize("s", [256, 200])
+def test_ssd_gradients_kernel_forward_vs_plain_forward(cuda_device, s):
+    """At the trainer's chunk 64: the SsdScan Function (the kernel's
+    forward; the backward recomputes the plain scan on the same padded
+    inputs) against autograd of the plain scan: y within the forward
+    checks' limit, every input's gradient equal within 1e-5 of its
+    largest value (the same plain computation on the card)."""
+    b, h, p, n, chunk = 2, 5, 64, 64, 64
+    args = _ssd_inputs(cuda_device, b, s, h, p, n, s + 3)
+    dy = torch.randn((b, s, h, p), device=cuda_device).bfloat16()
+
+    def grads(fn):
+        ins = [t.detach().clone().requires_grad_() for t in args]
+        y, _ = fn(*ins)
+        y.backward(dy)
+        return y.detach(), [t.grad for t in ins]
+
+    def plain(x, dt, A, B, C, D):
+        pad = (-s) % chunk
+        y, f = ssd_chunked(F.pad(x, (0, 0, 0, 0, 0, pad)),
+                           F.pad(dt, (0, 0, 0, pad)), A,
+                           F.pad(B, (0, 0, 0, pad)),
+                           F.pad(C, (0, 0, 0, pad)), D, chunk=chunk)
+        return y[:, :s], f
+
+    before = sops.ssd_scan.launches
+    y, got = grads(lambda *a: sops.ssd_scan(*a, chunk=chunk))
+    assert sops.ssd_scan.launches == before + 1      # none in the backward
+    yr, ref = grads(plain)
+    torch.cuda.synchronize()
+    assert float((y.float() - yr.float()).abs().max()) < 5e-2
+    for a, r in zip(got, ref):
+        top = float(r.float().abs().max())
+        assert float((a.float() - r.float()).abs().max()) <= 1e-5 * top
+
+
+def test_serving_flash_call_is_unchanged_without_grad(cuda_device):
+    """Under inference_mode (the serving path) the wrapper launches the
+    kernel once with lse null, no autograd node, the output bit-equal to
+    the training forward's."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(5)
+    q, k, v = (torch.randn((4, 512, 32, 80), generator=g, device=cuda_device)
+               .bfloat16() for _ in range(3))
+    before = fops.flash_attention.launches
+    with torch.inference_mode():
+        out = fops.flash_attention(q, k, v)
+    assert fops.flash_attention.launches == before + 1
+    assert out.grad_fn is None
+    train_out, lse = fops.flash_forward(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, train_out) and torch.isfinite(lse).all()

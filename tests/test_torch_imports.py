@@ -47,7 +47,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "kernels.flash_attention.ops", "kernels.ssd_scan.ops",
                  "serve.engine", "launch.serve", "launch.distributed",
                  "core.shm_transport", "core.parallel_engine",
-                 "ckpt.manager"):
+                 "ckpt.manager", "core.original_io", "core.sst_engine",
+                 "insitu.reducers", "insitu.runner", "optim.adamw",
+                 "optim.grad_compress", "data.pipeline", "train.state",
+                 "train.step", "train.trainer", "launch.train",
+                 "examples.sst_streaming", "examples.quickstart",
+                 "examples.train_lm"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -115,3 +120,29 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
                        "--batch", "1", "--prompt-len", "8",
                        "--new-tokens", "2", "--max-seq", "16"])
     assert toks.shape == (1, 2)
+
+
+def test_training_and_streaming_entry_points_raise_without_a_card(
+        monkeypatch, tmp_path):
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.examples import quickstart, sst_streaming, train_lm
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduce_for_smoke(get_config("smollm-360m"))
+    for call in (lambda: init_train_state(cfg),
+                 lambda: Trainer(cfg, TrainerConfig(), AdamWConfig(),
+                                 tmp_path / "ckpt"),
+                 lambda: train.main(["--arch", "smollm-360m", "--smoke",
+                                     "--ckpt-dir", str(tmp_path / "c")]),
+                 lambda: sst_streaming.main([]),
+                 lambda: quickstart.main([]),
+                 lambda: train_lm.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    state = init_train_state(cfg, device="cpu")
+    assert int(state["step"]) == 0
+    assert state["opt"]["m"]["embed"]["table"].dtype == torch.float32
