@@ -63,6 +63,18 @@
    after step 3 and one that resumes from step 2, equal to the
    uninterrupted run bit for bit, then a serve from the newest
    checkpoint, whose variables carry the JAX package's names;
+6c. the mesh phase: 6b's step-2 checkpoint through an elastic 1 -> 4 ->
+   1-rank round trip. A 4-rank gloo job of this script's own processes on
+   the host (CPU by design: NCCL refuses two ranks on one GPU, and the
+   multi-rank save and restore are what it exercises) restores it onto a
+   (2, 2) ("data", "model") mesh under `train_state_shardings`, each rank
+   holding its shards against a full restore bit for bit, and saves it
+   sharded; the card restores that with
+   `CheckpointManager.restore_latest(shardings=)` onto a (1, 1) mesh (a
+   one-rank nccl group), bit-equal to a full restore, and trains steps 3
+   and 4 from it through the flash kernel and saves once through the
+   byte-shuffle kernel, bit-equal to 6b's uninterrupted run, with each
+   rank's bytes read beside its box bytes;
 7. prints one JSON line of per-kernel numbers, then, as the last line,
    `{"ok": true, "device": {...}}`.
 
@@ -1948,6 +1960,27 @@ def run_train_step(torch, dev, cfg=None) -> dict:
     return res
 
 
+def trainer_setup(full=None):
+    """The trainer phase's config (smollm-360m at full width, depth cut to
+    TRAINER_LAYERS), its TrainerConfig (batch 8, seq 256, 4 steps,
+    checkpoints every 2), AdamW settings and engine: (cfg, full, tcfg, hp,
+    engine)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.bp_engine import EngineConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import TrainerConfig
+    full = full or get_config(TRAINER_ARCH)
+    cfg = dataclasses.replace(full, n_layers=min(TRAINER_LAYERS,
+                                                 full.n_layers))
+    steps = 4
+    tcfg = TrainerConfig(steps=steps, log_every=1, ckpt_every=2,
+                         seq_len=256, global_batch=8)
+    hp = AdamWConfig(lr=3e-4, warmup_steps=min(20, steps // 5 + 1),
+                     total_steps=steps)
+    engine = EngineConfig(aggregators=4, codec="blosc", workers=4)
+    return cfg, full, tcfg, hp, engine
+
+
 def run_trainer(torch, dev, workdir: pathlib.Path, full=None) -> dict:
     """smollm-360m at full width (960 wide, 15 heads of 64 over 5 kv
     heads), depth cut to TRAINER_LAYERS, through `Trainer` (batch 8, seq
@@ -1961,31 +1994,21 @@ def run_trainer(torch, dev, workdir: pathlib.Path, full=None) -> dict:
     - a serve (`ServeEngine.generate`) from the newest checkpoint, whose
       variables carry the JAX package's names and stacked shapes; its
       tokens must equal those of the resumed run's own params."""
-    import dataclasses
     import numpy as np
     from repro_torch.ckpt.checkpoint import (Stacked, checkpoint_path,
                                              flatten_state, list_checkpoints)
     from repro_torch.ckpt.manager import CheckpointManager
-    from repro_torch.configs.base import get_config
-    from repro_torch.core.bp_engine import BpReader, EngineConfig
+    from repro_torch.core.bp_engine import BpReader
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models import model as M
-    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.serve.engine import ServeConfig, ServeEngine
-    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.trainer import Trainer
 
-    full = full or get_config(TRAINER_ARCH)
-    cfg = dataclasses.replace(full, n_layers=min(TRAINER_LAYERS,
-                                                 full.n_layers))
+    cfg, full, tcfg, hp, engine = trainer_setup(full)
     print(f"trainer phase: {cfg.name} at full width, depth cut "
           f"{full.n_layers} -> {cfg.n_layers} layers "
           f"({cfg.n_params()} params of {full.n_params()})")
-    steps = 4
-    tcfg = TrainerConfig(steps=steps, log_every=1, ckpt_every=2,
-                         seq_len=256, global_batch=8)
-    hp = AdamWConfig(lr=3e-4, warmup_steps=min(20, steps // 5 + 1),
-                     total_steps=steps)
-    engine = EngineConfig(aggregators=4, codec="blosc", workers=4)
+    steps = tcfg.steps
     t = {}
 
     def trainer(path, tc=tcfg):
@@ -2077,12 +2100,274 @@ def run_trainer(torch, dev, workdir: pathlib.Path, full=None) -> dict:
            "expected_flash_uninterrupted": steps * train_launches(cfg)[
                "flash_attention"],
            "serve_tokens": toks.tolist(), "t": t,
-           "manager": manager_stats(resumer.manager)}
+           "manager": manager_stats(resumer.manager),
+           "step_wall_s": [b["wall_s"] - a["wall_s"] for a, b in
+                           zip(ref["history"], ref["history"][1:])]}
     if ref_flash != res["expected_flash_uninterrupted"]:
         raise AssertionError(f"trainer flash launches {ref_flash} != "
                              f"{res['expected_flash_uninterrupted']}")
     print(json.dumps({"trainer": res}))
+    # the mesh phase resumes from the crash's checkpoint against these
+    res.update(ref_state=ref["state"], ref_loss=ref_loss, full=full)
     return res
+
+
+# ================================================================ the mesh
+#: the mesh phase's layout: smollm's 15 heads do not divide the `model`
+#: axis of 2, so attention takes the head_dim layout
+MESH_SHAPE, MESH_AXES, MESH_RANKS = (2, 2), ("data", "model"), 4
+
+
+def _box_bytes(state) -> int:
+    from repro_torch.ckpt.checkpoint import Stacked, flatten_state
+    n = 0
+    for leaf in flatten_state(state).values():
+        for p in (leaf.parts if isinstance(leaf, Stacked) else [leaf]):
+            loc = p.to_local()
+            n += loc.numel() * loc.element_size()
+    return n
+
+
+def mesh_rank_up() -> int:
+    """A rank's first task: its rank, once it has joined the group."""
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def mesh_rank_job(src: str, step: int, dst: str, full) -> dict:
+    """One rank of the mesh phase's 4-rank gloo job on the host (its
+    tensors never touch the card): restore the trainer's checkpoint onto
+    the (2, 2) mesh under `train_state_shardings`, hold each local shard
+    against the same slice of a full restore of the same file bit for bit,
+    and save the state sharded (every rank's chunks, replicas included,
+    each shard byte-shuffled by the plain version of the transpose on the
+    host)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import (Stacked, _local_box,
+                                             flatten_state,
+                                             restore_checkpoint,
+                                             restore_sharded,
+                                             save_checkpoint)
+    from repro_torch.core.darshan import CTR, MONITOR
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.train.state import (train_state_shapes,
+                                         train_state_shardings)
+    cfg, _full, _tcfg, _hp, engine = trainer_setup(full)
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device_type="cpu")
+    MONITOR.reset()
+    t0 = time.perf_counter()
+    state, at = restore_sharded(src, train_state_shapes(cfg),
+                                train_state_shardings(cfg, mesh), step=step)
+    t_restore = time.perf_counter() - t0
+    read = MONITOR.report()["total"].get(CTR.POSIX_BYTES_READ, 0.0)
+    t0 = time.perf_counter()
+    like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                    train_state_shapes(cfg))
+    whole, _ = restore_checkpoint(src, like, step=step)
+    t_whole = time.perf_counter() - t0
+    checked = 0
+    want = flatten_state(whole)
+    for name, leaf in flatten_state(state).items():
+        ws = want[name].parts if isinstance(leaf, Stacked) else [want[name]]
+        for p, w in zip(leaf.parts if isinstance(leaf, Stacked) else [leaf],
+                        ws):
+            loc = p.to_local()
+            sl = tuple(slice(o, o + e) for o, e in
+                       zip(_local_box(p), loc.shape))
+            if not torch.equal(loc, w[sl] if sl else w):
+                raise AssertionError(f"rank {dist.get_rank()}: {name} "
+                                     f"differs from the full restore")
+            checked += 1
+    del whole, want
+    t0 = time.perf_counter()
+    save_checkpoint(dst, state, at, engine_config=engine,
+                    device_compress=True)
+    t_save = time.perf_counter() - t0
+    return {"rank": dist.get_rank(), "coordinate": mesh.get_coordinate(),
+            "step": at, "read_bytes": read, "box_bytes": _box_bytes(state),
+            "shards_checked": checked, "restore_s": t_restore,
+            "full_restore_s": t_whole, "save_s": t_save}
+
+
+def _shuffled_chunks(state) -> int:
+    """The `shuffle_blocks` launches a device-compressed save of `state`
+    makes: one a tensor leaf or layer of rank >= 1 that is not bfloat16."""
+    import torch
+    from repro_torch.ckpt.checkpoint import Stacked, flatten_state
+    n = 0
+    for leaf in flatten_state(state).values():
+        for p in (leaf.parts if isinstance(leaf, Stacked) else [leaf]):
+            n += int(p.ndim > 0 and p.dtype != torch.bfloat16)
+    return n
+
+
+def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
+             smi: str) -> dict:
+    """The mesh phase: an elastic 1 -> 4 -> 1-rank round trip of the
+    trainer's step-2 checkpoint (written on the card by the run that
+    crashed, one chunk a leaf or layer), then the uninterrupted run's
+    remaining steps on the card from the round trip's state.
+    1. 1 -> 4: a 4-rank gloo job on the host (processes of this script,
+       a FileStore in the workdir) restores it onto a (2, 2) ("data",
+       "model") mesh under `train_state_shardings`, each rank checking its
+       shards against a full restore bit for bit, and saves it sharded.
+    2. 4 -> 1: on the card, a (1, 1) mesh (`make_mesh`: a one-rank nccl
+       group) and `CheckpointManager.restore_latest(like, shardings=)` of
+       the 4-rank checkpoint, bit-equal to a full restore of the card's.
+    3. Resume: steps 3 and 4 through `make_train_step` (the Trainer's) on
+       the DTensor state under `use_mesh` and deterministic algorithms,
+       one device-compressed save through the manager; the losses and the
+       final state bit-equal to the uninterrupted run's, with the flash and
+       `shuffle_blocks` launches the steps and the save should make."""
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import (Stacked, checkpoint_path,
+                                             flatten_state,
+                                             restore_checkpoint)
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.core.bp_engine import BpReader
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels.bitshuffle import ops as bops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.distributed import RankPool
+    from repro_torch.launch.mesh import make_mesh, mesh_summary
+    from repro_torch.meshctx import use_mesh
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.train.state import (train_state_shapes,
+                                         train_state_shardings)
+    from repro_torch.train.trainer import Trainer
+    cfg, full, tcfg, hp, engine = trainer_setup(trainer["full"])
+    src, dst, step = workdir / "ckpt", workdir / "mesh_4rank", 2
+    t = {}
+    # ---- 1 -> 4, on the host
+    t0 = time.perf_counter()
+    with RankPool(MESH_RANKS, workdir / "mesh_store", timeout=600) as pool:
+        if pool.run(mesh_rank_up) != list(range(MESH_RANKS)):
+            raise AssertionError("the ranks came up out of order")
+        t["ranks_up_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = pool.run(mesh_rank_job, str(src), step, str(dst), full)
+        t["job_s"] = time.perf_counter() - t0
+    with BpReader(checkpoint_path(dst, step)) as r:
+        chunks = {v: [c.rank for c in r.iter_chunks(step, v)]
+                  for v in r.var_names(step)}
+    n_chunks = sum(len(v) for v in chunks.values())
+    if any(sorted(set(v)) != list(range(MESH_RANKS))
+           for v in chunks.values()):
+        raise AssertionError(f"the 4-rank checkpoint misses a rank's chunks:"
+                             f" {chunks}")
+    stored = sum(f.stat().st_size for f in
+                 checkpoint_path(dst, step).glob("data.*"))
+    src_stored = sum(f.stat().st_size for f in
+                     checkpoint_path(src, step).glob("data.*"))
+    # ---- 4 -> 1, on the card
+    mesh = make_mesh((1, 1), MESH_AXES, device_type=dev.type)
+    try:
+        shardings = train_state_shardings(cfg, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, at = CheckpointManager(dst).restore_latest(
+            train_state_shapes(cfg), shardings=shardings)
+        torch.cuda.synchronize()
+        t["restore_4_to_1_s"] = time.perf_counter() - t0
+        like = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                              device=dev),
+                        train_state_shapes(cfg))
+        whole, _ = restore_checkpoint(src, like, step=step)
+        got, want = flatten_state(state), flatten_state(whole)
+        for name, leaf in want.items():
+            ws = leaf.parts if isinstance(leaf, Stacked) else [leaf]
+            gs = got[name].parts if isinstance(leaf, Stacked) else [
+                got[name]]
+            if not all(g.to_local().device == w.device
+                       and torch.equal(g.to_local(), w)
+                       for g, w in zip(gs, ws)):
+                raise AssertionError(f"4 -> 1 restore: {name} differs from "
+                                     f"the full restore")
+        del whole, want, got, like
+        # ---- resume: the uninterrupted run's remaining steps
+        resumer = Trainer(cfg, tcfg, hp, workdir / "mesh_resume",
+                          engine_config=engine, device=dev,
+                          device_compress=True)
+        losses, step_s = [], []
+        fops.flash_attention.launches = 0
+        bops.shuffle_blocks.launches = 0
+        prev = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            with use_mesh(mesh):
+                for s in range(at, tcfg.steps):
+                    batch = to_device(resumer._make_batch(s), dev)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = resumer.step_fn(state, batch)
+                    losses.append(float(m["loss"]))
+                    step_s.append(time.perf_counter() - t0)
+                flash = fops.flash_attention.launches
+                t0 = time.perf_counter()
+                resumer.manager.save(state, tcfg.steps, force=True)
+                resumer.manager.wait()
+                t["save_s"] = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(prev)
+        shuffles = bops.shuffle_blocks.launches
+        ref_loss = trainer["ref_loss"]
+        if losses != [ref_loss[s + 1] for s in range(at, tcfg.steps)]:
+            raise AssertionError(f"resumed losses {losses} != uninterrupted "
+                                 f"{ref_loss}")
+        ref = flatten_state(trainer["ref_state"])
+        for name, leaf in flatten_state(state).items():
+            xs = leaf.parts if isinstance(leaf, Stacked) else [leaf]
+            ys = ref[name].parts if isinstance(leaf, Stacked) else [
+                ref[name]]
+            if not all(torch.equal(x.to_local(), y) for x, y in zip(xs, ys)):
+                raise AssertionError(f"resumed state {name} differs from the "
+                                     f"uninterrupted run's")
+        want_flash = (tcfg.steps - at) * train_launches(cfg)["flash_attention"]
+        want_shuffles = _shuffled_chunks(state)
+        if flash != want_flash or shuffles != want_shuffles:
+            raise AssertionError(f"mesh resume launches: flash {flash} != "
+                                 f"{want_flash} or shuffle_blocks {shuffles}"
+                                 f" != {want_shuffles}")
+        summary = mesh_summary(mesh)
+    finally:
+        dist.destroy_process_group()
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "step": at,
+           "mesh_4rank": {"shape": list(MESH_SHAPE), "axes": list(MESH_AXES),
+                          "backend": "gloo", "device": "cpu"},
+           "mesh_card": summary, "ranks": ranks,
+           "chunks_4rank": n_chunks, "stored_bytes_4rank": stored,
+           "stored_bytes_source": src_stored, "losses": losses,
+           "step_s": step_s,
+           "uninterrupted_step_s": trainer["step_wall_s"][at - 1:],
+           "flash_launches": flash, "shuffle_launches": shuffles,
+           "bit_exact": True, "t": t, "card": smi}
+    print(json.dumps({"mesh": res}))
+    return res
+
+
+def print_mesh(res: dict):
+    t, card = res["t"], res["card"]
+    print(f"mesh phase ({res['arch']}, {res['n_layers']} layers; {card}): "
+          f"1 -> 4 on a {tuple(res['mesh_4rank']['shape'])} gloo mesh on "
+          f"the host (CPU by design: one card cannot hold 4 nccl ranks), "
+          f"ranks up {t['ranks_up_s']:.2f} s, job {t['job_s']:.2f} s; "
+          f"4-rank checkpoint {res['chunks_4rank']} chunks, "
+          f"{res['stored_bytes_4rank']} bytes stored (source "
+          f"{res['stored_bytes_source']}); 4 -> 1 restore_latest on the "
+          f"card {t['restore_4_to_1_s']:.2f} s, bit-equal; resumed steps "
+          f"{res['step_s']} s (uninterrupted "
+          f"{res['uninterrupted_step_s']} s), losses {res['losses']} "
+          f"bit-equal, save {t['save_s']:.2f} s; launches flash "
+          f"{res['flash_launches']}, shuffle_blocks "
+          f"{res['shuffle_launches']}")
+    for r in res["ranks"]:
+        print(f"  rank {r['rank']} at {r['coordinate']}: read "
+              f"{r['read_bytes']:.0f} bytes for {r['box_bytes']} box bytes; "
+              f"restore {r['restore_s']:.2f} s, full restore "
+              f"{r['full_restore_s']:.2f} s, sharded save {r['save_s']:.2f}"
+              f" s; {r['shards_checked']} shards bit-equal ({card})")
 
 
 def manager_stats(m) -> dict:
@@ -2303,11 +2588,18 @@ def main() -> int:
     # train, crash, resume and serve through the Trainer, last: its
     # deterministic mode and checkpoints touch no other phase
     torch.cuda.empty_cache()
+    # then the mesh phase on 6b's checkpoints, the counts zeroed inside
     workdir = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-trainer-"))
     try:
         trainer = run_trainer(torch, dev, workdir)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mesh = run_mesh(torch, dev, workdir, trainer, smi)
+        mesh["phase_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    for k in ("ref_state", "full"):
+        trainer.pop(k)
     tt = trainer["t"]
     mg = trainer["manager"]
     print(f"trainer ({trainer['arch']}, {trainer['n_layers']} of "
@@ -2320,6 +2612,8 @@ def main() -> int:
           f"{trainer['losses']}; resume bit-exact; served step "
           f"{trainer['serve_step']} under the JAX names "
           f"({trainer['checkpoint_vars']} variables)")
+    print_mesh(mesh)
+    print(f"mesh phase: {mesh['phase_s']:.1f} s ({smi})")
 
     # flash and SSD launches: the serve paths' prefills and the train
     # step's first step (the kernels' rows); the lse instance runs only on

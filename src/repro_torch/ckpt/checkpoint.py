@@ -20,8 +20,16 @@ one leaf at a time and row-split as the JAX package splits them; with
 so nothing is stacked on the device. Either package's reader returns the
 same global arrays, and a restore splits them back into the lists.
 
-A leaf sharded over a device mesh, and the elastic re-sharding restore
-(`restore_sharded`), come with the port's mesh layer (DTensor).
+A DTensor leaf on a mesh of more than one device is saved collectively,
+as the JAX package saves a sharded leaf: one chunk a rank's local shard,
+at its box offset and at `rank=` its global rank (row-major over the
+mesh, like a JAX device id), replicas included; every rank calls
+`save_checkpoint`, rank 0 gathers the shards' bytes and writes the
+series, and every rank returns the same path. With `device_compress`
+each rank first byte-shuffles its shard on its device. A DTensor on a
+one-device mesh is saved as its local tensor. `restore_sharded` is the
+elastic restore: each rank reads only the box of each leaf that its
+shard of the new layout needs, and builds DTensors.
 """
 from __future__ import annotations
 
@@ -73,15 +81,21 @@ def _host_leaf(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _tensor_from(arr: np.ndarray, dtype, shape, device) -> torch.Tensor:
+    """A stored array as a tensor of `dtype` and `shape` on `device`
+    (bfloat16 from its uint16 storage)."""
+    if dtype == torch.bfloat16 and arr.dtype == np.uint16:
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.astype(C.np_dtype(dtype), copy=False))
+    return t.reshape(shape).to(device)
+
+
 def _restore_leaf(arr: np.ndarray, like):
     """A stored array in the form of `like`: a tensor on like's device
     (bfloat16 from its uint16 storage), an ndarray, or a Python scalar."""
     if isinstance(like, torch.Tensor):
-        if like.dtype == torch.bfloat16 and arr.dtype == np.uint16:
-            t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr.astype(C.np_dtype(like.dtype), copy=False))
-        return t.reshape(like.shape).to(like.device)
+        return _tensor_from(arr, like.dtype, like.shape, like.device)
     if isinstance(like, np.ndarray):
         return arr.astype(like.dtype).reshape(like.shape)
     return type(like)(arr.reshape(-1)[0])
@@ -210,64 +224,80 @@ def save_checkpoint(directory, state, step: int, *, n_io_ranks: int = 8,
     leaves, Python scalars and bfloat16 (raw uint16 storage) keep the host
     path. With `parallel_io` the coordinator shuffles such a leaf and the
     workers receive pre-shuffled host bytes: they pay only the LZ stage.
-    Such a leaf is one chunk at rank 0, so it lands on writer 0."""
+    Such a leaf is one chunk at rank 0, so it lands on writer 0.
+
+    DTensor leaves on a mesh of more than one device make the save
+    collective: every rank calls it, each writes its own shards' chunks
+    through rank 0, which alone opens the writer."""
     directory = pathlib.Path(str(directory))
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}.bp4"
     tmp = directory / f"step_{step:08d}.bp4.tmp"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-
     flat = flatten_state(state)
     cfg = dataclasses.replace(engine_config, fsync_policy="step",
                               device_compress=(device_compress
                                                or engine_config.device_compress))
     use_dev = cfg.device_compress and C.codec_wants_device(cfg.codec)
-    if parallel_io or writer_plane is not None:
-        from repro_torch.core.parallel_engine import ParallelBpWriter
-        w = ParallelBpWriter(tmp, n_io_ranks, cfg,
-                             n_writers=parallel_io or None,
-                             plane=writer_plane, transport=transport)
-    elif async_io:
-        from repro_torch.core.async_engine import AsyncBpWriter
-        w = AsyncBpWriter(tmp, n_io_ranks, cfg)
-    else:
-        w = BpWriter(tmp, n_io_ranks, cfg)
+    if any(_sharded(v) for v in flat.values()):
+        return _save_sharded(directory, final, tmp, flat, step, cfg, use_dev,
+                             n_io_ranks, extra_attrs, async_io, parallel_io,
+                             writer_plane, transport)
+    flat = {k: _on_one_device(v) for k, v in flat.items()}
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    w = _open_writer(tmp, cfg, n_io_ranks, async_io, parallel_io,
+                     writer_plane, transport)
     try:
-        w.begin_step(step)
-        w.set_attribute("checkpoint/step", step)
-        w.set_attribute("checkpoint/n_leaves", len(flat))
-        for k, v in (extra_attrs or {}).items():
-            w.set_attribute(k, v)
+        _begin(w, step, len(flat), extra_attrs)
         for name, leaf in flat.items():
-            if isinstance(leaf, Stacked):
-                _put_stacked(w, f"state/{name}", leaf, use_dev, n_io_ranks)
-                continue
-            if _device_leaf(leaf, use_dev):
-                # stays a tensor: the engine preconditions it on its device
-                w.put(f"state/{name}", leaf, global_shape=tuple(leaf.shape),
-                      offset=(0,) * leaf.ndim, rank=0)
-                continue
-            host = _host_leaf(leaf)
-            gshape = host.shape if host.ndim else (1,)
-            for r, off, chunk in _leaf_chunks(host, n_io_ranks):
+            for gshape, off, rank, chunk in _chunks(leaf, use_dev,
+                                                    n_io_ranks):
                 w.put(f"state/{name}", chunk, global_shape=gshape,
-                      offset=off, rank=r)
+                      offset=off, rank=rank)
         w.end_step()
     except BaseException:
-        # a failed save must not leak the writer thread / open md handles;
-        # the ORIGINAL error is what propagates
-        try:
-            w.close()
-        except BaseException:        # noqa: BLE001
-            pass
+        _close_quietly(w)
         raise
     w.close()
+    _publish(directory, final, tmp, step)
+    return final
+
+
+def _open_writer(tmp, cfg, n_io_ranks, async_io, parallel_io, writer_plane,
+                 transport):
+    if parallel_io or writer_plane is not None:
+        from repro_torch.core.parallel_engine import ParallelBpWriter
+        return ParallelBpWriter(tmp, n_io_ranks, cfg,
+                                n_writers=parallel_io or None,
+                                plane=writer_plane, transport=transport)
+    if async_io:
+        from repro_torch.core.async_engine import AsyncBpWriter
+        return AsyncBpWriter(tmp, n_io_ranks, cfg)
+    return BpWriter(tmp, n_io_ranks, cfg)
+
+
+def _begin(w, step: int, n_leaves: int, extra_attrs):
+    w.begin_step(step)
+    w.set_attribute("checkpoint/step", step)
+    w.set_attribute("checkpoint/n_leaves", n_leaves)
+    for k, v in (extra_attrs or {}).items():
+        w.set_attribute(k, v)
+
+
+def _close_quietly(w):
+    """A failed save must not leak the writer thread / open md handles;
+    the ORIGINAL error is what propagates."""
+    try:
+        w.close()
+    except BaseException:        # noqa: BLE001
+        pass
+
+
+def _publish(directory, final, tmp, step: int):
     if final.exists():
         shutil.rmtree(final)
     os.rename(tmp, final)
     (directory / "latest.txt").write_text(str(step))
-    return final
 
 
 def _device_leaf(leaf, use_dev: bool) -> bool:
@@ -276,7 +306,23 @@ def _device_leaf(leaf, use_dev: bool) -> bool:
             and leaf.dtype != torch.bfloat16)
 
 
-def _put_stacked(w, var: str, leaf: Stacked, use_dev: bool, n_ranks: int):
+def _chunks(leaf, use_dev: bool, n_ranks: int):
+    """(global_shape, offset, rank, chunk) of a leaf off any mesh. A device
+    leaf stays a tensor, one chunk at rank 0: the engine preconditions it
+    on its device. A host leaf is row-split by rank."""
+    if isinstance(leaf, Stacked):
+        yield from _stacked_chunks(leaf, use_dev, n_ranks)
+        return
+    if _device_leaf(leaf, use_dev):
+        yield tuple(leaf.shape), (0,) * leaf.ndim, 0, leaf
+        return
+    host = _host_leaf(leaf)
+    gshape = host.shape if host.ndim else (1,)
+    for r, off, chunk in _leaf_chunks(host, n_ranks):
+        yield gshape, off, r, chunk
+
+
+def _stacked_chunks(leaf: Stacked, use_dev: bool, n_ranks: int):
     """A group of layers as the JAX package's stacked variable. Device
     leaves: layer i is the chunk at (i, 0, ...) (row-major over `lead`),
     put by rank i mod `n_ranks` so the layers spread over the aggregators.
@@ -286,13 +332,149 @@ def _put_stacked(w, var: str, leaf: Stacked, use_dev: bool, n_ranks: int):
     if all(_device_leaf(p, use_dev) for p in leaf.parts):
         ones = (1,) * len(leaf.lead)
         for i, part in enumerate(leaf.parts):
-            w.put(var, part.reshape(ones + tuple(part.shape)),
-                  global_shape=gshape, offset=leaf.offset(i),
-                  rank=i % n_ranks)
+            yield (gshape, leaf.offset(i), i % n_ranks,
+                   part.reshape(ones + tuple(part.shape)))
         return
     host = np.stack([_host_leaf(p) for p in leaf.parts]).reshape(gshape)
     for r, off, chunk in _leaf_chunks(host, n_ranks):
-        w.put(var, chunk, global_shape=gshape, offset=off, rank=r)
+        yield gshape, off, r, chunk
+
+
+# --------------------------------------------------------- DTensor leaves
+def _dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _sharded(leaf) -> bool:
+    """A DTensor leaf (or layer group of them) on a mesh of more than one
+    device."""
+    if isinstance(leaf, Stacked):
+        return any(_sharded(p) for p in leaf.parts)
+    return _dtensor(leaf) and leaf.device_mesh.size() > 1
+
+
+def _on_one_device(leaf):
+    """A DTensor on a one-device mesh as its local tensor (the same
+    storage); any other leaf as it is."""
+    if isinstance(leaf, Stacked):
+        return leaf.map(_on_one_device)
+    return leaf.to_local() if _dtensor(leaf) else leaf
+
+
+def _local_box(x) -> tuple:
+    """The global offset of this rank's shard of DTensor `x`: a dim split
+    over several mesh dims is split row-major in mesh-dim order, as
+    DTensor and `launch.sharding.shard_box` split it."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    shape = tuple(x.shape)
+    idx, n = [0] * len(shape), [1] * len(shape)
+    for i, p in enumerate(x.placements):
+        if type(p) is Shard:
+            idx[p.dim] = idx[p.dim] * mesh.size(i) + coord[i]
+            n[p.dim] *= mesh.size(i)
+        elif not p.is_replicate():
+            raise ValueError(f"cannot checkpoint a DTensor with placement "
+                             f"{p!r}: only Shard and Replicate")
+    if any(s % k for s, k in zip(shape, n)):
+        raise ValueError(f"DTensor of shape {shape} splits unevenly over "
+                         f"{x.placements}")
+    return tuple(i * (s // k) for i, s, k in zip(idx, shape, n))
+
+
+def _shard_chunk(local: torch.Tensor, use_dev: bool, block: int, shape):
+    """One rank's shard as the chunk to write, reshaped to `shape`:
+    byte-shuffled on its device into a `PreshuffledChunk`, or on the
+    host."""
+    local = local.reshape(shape)
+    if _device_leaf(local, use_dev):
+        return C.device_precondition(local, block=block)
+    return _host_leaf(local)
+
+
+def _rank_chunks(leaf, use_dev: bool, block: int, rank: int) -> list:
+    """(global_shape, offset, rank, chunk) of this rank's shards of a
+    sharded leaf. A 0-d leaf is written as its 0-d self at offset (), as
+    the JAX package writes a replicated scalar; a group of layers is the
+    stacked variable: the shards of all layers stacked on the host into
+    one chunk [*lead, *box] (the JAX package's chunk), or with
+    `device_compress` one chunk a layer at (i, *box)."""
+    if not isinstance(leaf, Stacked):
+        local = leaf.to_local()
+        if leaf.ndim == 0:
+            return [((), (), rank, _host_leaf(local).reshape(()))]
+        return [(tuple(leaf.shape), _local_box(leaf), rank,
+                 _shard_chunk(local, use_dev, block, local.shape))]
+    gshape = leaf.shape
+    zeros = (0,) * len(leaf.lead)
+    box = _local_box(leaf.parts[0])
+    if all(_device_leaf(p.to_local(), use_dev) for p in leaf.parts):
+        ones = (1,) * len(leaf.lead)
+        return [(gshape, leaf.offset(i)[:len(leaf.lead)] + _local_box(p),
+                 rank, _shard_chunk(p.to_local(), use_dev, block,
+                                    ones + tuple(p.to_local().shape)))
+                for i, p in enumerate(leaf.parts)]
+    local = [_host_leaf(p.to_local()) for p in leaf.parts]
+    stacked = np.stack(local).reshape(tuple(leaf.lead) + local[0].shape)
+    return [(gshape, zeros + box, rank, stacked)]
+
+
+def _save_sharded(directory, final, tmp, flat, step, cfg, use_dev,
+                  n_io_ranks, extra_attrs, async_io, parallel_io,
+                  writer_plane, transport) -> pathlib.Path:
+    """The collective save of a state with sharded DTensor leaves: every
+    rank makes the chunks of its own shards (byte-shuffled on its device
+    with `device_compress`), rank 0 gathers them leaf by leaf, in rank
+    order, and writes the series. Leaves off any mesh are rank 0's, as a
+    single-device save writes them."""
+    import torch.distributed as dist
+    from repro_torch.core.darshan import CTR, MONITOR
+    rank, world = dist.get_rank(), dist.get_world_size()
+    w = None
+    if rank == 0:
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        w = _open_writer(tmp, cfg, n_io_ranks, async_io, parallel_io,
+                         writer_plane, transport)
+    try:
+        if w is not None:
+            _begin(w, step, len(flat), extra_attrs)
+        for name, leaf in flat.items():
+            if _sharded(leaf):
+                mine = _rank_chunks(leaf, use_dev, cfg.compression_block,
+                                    rank)
+            elif rank == 0:
+                mine = list(_chunks(_on_one_device(leaf), use_dev,
+                                    n_io_ranks))
+            else:
+                mine = []
+            # rank 0 keeps its own chunks (tensors stay where they are)
+            got = [None] * world if rank == 0 else None
+            dist.gather_object([] if rank == 0 else mine, got, dst=0)
+            if w is None:
+                continue
+            got[0] = mine
+            for chunks in got:
+                for gshape, off, r, chunk in chunks:
+                    if isinstance(chunk, C.PreshuffledChunk):
+                        MONITOR.record(0, str(tmp),
+                                       CTR.COMPRESS_DEVICE_BYTES,
+                                       inc=float(chunk.device_bytes))
+                    w.put(f"state/{name}", chunk, global_shape=gshape,
+                          offset=off, rank=r)
+        if w is not None:
+            w.end_step()
+    except BaseException:
+        if w is not None:
+            _close_quietly(w)
+        raise
+    if w is not None:
+        w.close()
+        _publish(directory, final, tmp, step)
+    dist.barrier()
+    return final
 
 
 def list_checkpoints(directory) -> list[int]:
@@ -336,3 +518,64 @@ def restore_checkpoint(directory, like, step: Optional[int] = None,
             else:
                 out[name] = _restore_leaf(arr, leaf)
     return unflatten_like(like, out), step
+
+
+def restore_sharded(directory, like, shardings, step: Optional[int] = None,
+                    *, parallel: int = 0):
+    """Elastic restore: `like` (tensors or meta tensors, of which only the
+    shape and dtype are read) and `shardings` (a tree of
+    `launch.sharding.NamedSharding` on a `DeviceMesh`, in like's
+    structure, e.g. `train.state.train_state_shardings`) describe the NEW
+    layout. Each rank reads exactly the box of each leaf its shard needs
+    from the chunk table and returns DTensors on the mesh's device; 0-d
+    leaves are read whole and replicated, and a group of layers is read a
+    layer at a time, the box (i, *box) of the stacked variable. Every
+    rank calls it. Returns (state, step)."""
+    directory = pathlib.Path(str(directory))
+    steps = list_checkpoints(directory)
+    if not steps:
+        raise FileNotFoundError(f"no valid checkpoints under {directory}")
+    step = step if step is not None else steps[-1]
+    flat_sh = flatten_state(shardings)
+    out = {}
+    with BpReader(checkpoint_path(directory, step),
+                  parallel=parallel) as reader:
+        for name, leaf in flatten_state(like).items():
+            var, sh = f"state/{name}", flat_sh[name]
+            if isinstance(leaf, Stacked):
+                out[name] = Stacked(leaf.lead, [
+                    _read_shard(reader, step, var, p, s,
+                                leaf.offset(i)[:len(leaf.lead)])
+                    for i, (p, s) in enumerate(zip(leaf.parts, sh.parts))])
+            else:
+                out[name] = _read_shard(reader, step, var, leaf, sh, ())
+    return unflatten_like(like, out), step
+
+
+def _read_shard(reader, step: int, var: str, like, sharding, lead: tuple):
+    """This rank's DTensor of one leaf (or of layer `lead` of a stacked
+    variable) laid out as `sharding`."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.launch.sharding import shard_box
+    if not isinstance(like, torch.Tensor):
+        return _restore_leaf(reader.read_var(step, var), like)
+    mesh = sharding.mesh
+    shape = tuple(like.shape)
+    if mesh.device_type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = torch.device(mesh.device_type)
+    ones = (1,) * len(lead)
+    if not shape and not lead:
+        arr = reader.read_var(step, var)          # stored as [1] or ()
+        placements = [Replicate() for _ in range(mesh.ndim)]
+    else:
+        off, ext = shard_box(sharding.spec, mesh, shape,
+                             mesh.get_coordinate())
+        arr = reader.read_var(step, var, lead + off, ones + ext)
+        placements = sharding.placements
+    local = _tensor_from(arr, like.dtype, arr.shape[len(lead):] if shape
+                         else (), dev)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)

@@ -17,7 +17,9 @@ The snapshot differs from the JAX package's, whose device arrays are
 immutable and are handed to the writer as they are: a tensor is mutable,
 so save() copies every tensor leaf before it returns — with
 `device_compress` by `clone()` on its own device (the writer then
-shuffles the copy there), else to host.
+shuffles the copy there), else to host. A DTensor on a one-device mesh
+is copied as its local tensor; one on a larger mesh is cloned as a DTensor
+(each rank its shard), and its save is collective: every rank saves.
 """
 from __future__ import annotations
 
@@ -121,6 +123,13 @@ class CheckpointManager:
         def snap(x):
             if isinstance(x, CK.Stacked):
                 return x.map(snap)
+            if CK._sharded(x):          # a DTensor: each rank its shard
+                local = x.to_local()
+                if local.is_cuda and local.device not in streams:
+                    streams[local.device] = torch.cuda.current_stream(
+                        local.device)
+                return x.detach().clone()
+            x = CK._on_one_device(x)
             if isinstance(x, torch.Tensor):
                 x = x.detach()
                 if self.device_compress:
@@ -205,19 +214,18 @@ class CheckpointManager:
     # -------------------------------------------------------------- restore
     def restore_latest(self, like, shardings=None, *, parallel: int = 0):
         """Newest valid checkpoint as (state, step), or None if there is
-        none. `parallel=N` fans each leaf's chunk reads over a ReaderPool.
-        A restore onto a device mesh (`shardings`) needs the port's mesh
-        layer (ROADMAP.md Queue 1, item 7) and raises until it exists."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore_latest(shardings=...) restores onto a device mesh, "
-                "which needs the port's mesh layer on torch.distributed and "
-                "DTensor (ROADMAP.md Queue 1, item 7); call it without "
-                "shardings for a full restore")
+        none; a checkpoint that fails to restore (torn, corrupt) is skipped
+        for the next older one. With `shardings` (a
+        `launch.sharding.NamedSharding` tree on a `DeviceMesh`) each rank
+        reads its boxes into DTensors (`checkpoint.restore_sharded`).
+        `parallel=N` fans each leaf's chunk reads over a ReaderPool."""
         self.wait()
         steps = CK.list_checkpoints(self.dir)
         for step in reversed(steps):
             try:
+                if shardings is not None:
+                    return CK.restore_sharded(self.dir, like, shardings,
+                                              step=step, parallel=parallel)
                 return CK.restore_checkpoint(self.dir, like, step=step,
                                              parallel=parallel)
             except Exception:                        # noqa: BLE001

@@ -81,6 +81,11 @@ class ModelConfig:
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0
 
+    @property
+    def supports_long_context(self) -> bool:
+        """True when decode cost is sub-quadratic in context (SSM / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
     def n_params(self) -> int:
         """Analytic parameter count (matches init_params; used for 6ND)."""
         from repro_torch.models.model import count_params_analytic

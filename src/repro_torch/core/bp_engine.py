@@ -847,7 +847,8 @@ class BpReader:
                     for l, o, h in zip(lo, ch.offset, hi))
         dst = tuple(slice(l - o, h - o)
                     for l, o, h in zip(lo, sel_off, hi))
-        out[dst] = arr[src]
+        # a 0-d variable's chunk is stored with extent (1,)
+        out[dst] = arr[src].reshape(np.shape(out[dst]))
 
     def read_var(self, step: int, name: str,
                  offset: Optional[tuple] = None,

@@ -1,18 +1,176 @@
-"""Host helpers of multi-process bring-up: the I/O rank ranges and the
-spawned writer processes of the parallel write plane
-(`repro_torch.core.parallel_engine`).
+"""Multi-process bring-up on `torch.distributed`, and the host helpers of
+the parallel write plane: the port of the JAX package's
+`launch/distributed.py`.
 
-The port's own copy of the JAX package's host helpers (no JAX in them).
-The process-group bring-up (`initialize`) comes with the port's mesh
-layer on `torch.distributed`.
+`initialize` brings up the process group each rank joins before it
+builds a mesh (`launch.mesh.make_mesh`): one device a rank, nccl for CUDA
+and gloo for the CPU; a job of one process needs none (`make_mesh` brings
+up a one-rank group itself). The contract of the reference holds:
+env-driven, idempotent, and a restart re-enters through
+`CheckpointManager.restore_latest(shardings=...)`, whose elastic restore
+(`ckpt.checkpoint.restore_sharded`) lets a job come back at another world
+size reading only the boxes each rank needs.
+
+`RankPool` runs functions on W such ranks, spawned processes on the CPU
+that share a `FileStore`: tests and the smoke run drive the multi-rank
+paths (sharded saves, elastic restores) with it on one host.
+`io_rank_range`, `writer_rank_range`, `WorkerAckQueue` and
+`spawn_io_workers` are the write plane's
+(`repro_torch.core.parallel_engine`).
 """
 from __future__ import annotations
 
 import multiprocessing
 import multiprocessing.connection
+import os
 import queue as _queue
 import time
+import traceback
 from typing import Callable, Optional
+
+from repro_torch._device import resolve_device
+
+
+def initialize(coordinator: Optional[str] = None,
+               num_processes: Optional[int] = None,
+               process_id: Optional[int] = None, *, device=None) -> dict:
+    """Idempotent `torch.distributed` bring-up from args or env, as
+    torchrun sets it: `MASTER_ADDR:MASTER_PORT` (the coordinator),
+    `WORLD_SIZE` and `RANK`, and `LOCAL_RANK` for the card a CUDA rank
+    takes. `coordinator` is "host:port" (TCP) or an init-method URL such
+    as "file:///path/to/store". With more than one process it calls
+    `init_process_group`: nccl for CUDA (`device`, CUDA unless "cpu" is
+    asked for), gloo for the CPU; a second call checks the group and
+    returns. Returns the reference's dict; a rank drives one device, so
+    `global_devices` is the world size."""
+    import torch
+    import torch.distributed as dist
+
+    dev = resolve_device(device)
+    if coordinator is None and "MASTER_ADDR" in os.environ:
+        coordinator = (f"{os.environ['MASTER_ADDR']}:"
+                       f"{os.environ.get('MASTER_PORT', '29500')}")
+    num_processes = num_processes or int(os.environ.get("WORLD_SIZE", "1"))
+    process_id = (process_id if process_id is not None
+                  else int(os.environ.get("RANK", "0")))
+    if num_processes > 1:
+        if dist.is_initialized():
+            have = (dist.get_world_size(), dist.get_rank())
+            if have != (num_processes, process_id):
+                raise RuntimeError(f"process group of world {have[0]}, rank "
+                                   f"{have[1]} already up; asked for world "
+                                   f"{num_processes}, rank {process_id}")
+        else:
+            if coordinator is None:
+                raise ValueError("a multi-process job needs a coordinator "
+                                 "(argument or MASTER_ADDR/MASTER_PORT)")
+            if dev.type == "cuda":
+                local = int(os.environ.get("LOCAL_RANK", process_id))
+                torch.cuda.set_device(local % torch.cuda.device_count())
+            dist.init_process_group(
+                "nccl" if dev.type == "cuda" else "gloo",
+                init_method=(coordinator if "://" in coordinator
+                             else f"tcp://{coordinator}"),
+                world_size=num_processes, rank=process_id)
+    return {"process_id": process_id, "num_processes": num_processes,
+            "local_devices": 1, "global_devices": num_processes}
+
+
+def _rank_main(rank: int, world: int, init_method: str, tasks, results):
+    """A `RankPool` rank: joins the group, then runs each task sent to it
+    until it gets None; a task's error goes home as its traceback."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    initialize(init_method, world, rank, device="cpu")
+    try:
+        while True:
+            task = tasks.get()
+            if task is None:
+                break
+            fn, args = task
+            try:
+                results.put((True, fn(*args)))
+            except Exception:                    # noqa: BLE001 — sent home
+                results.put((False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+class RankPool:
+    """`world` spawned processes, the ranks of one gloo process group on
+    the CPU (a `FileStore` at `store_dir/store`, no TCP port). `run(fn,
+    *args)` calls `fn(*args)` in every rank and returns the results in
+    rank order; `fn` is sent by reference, so it must be a module-level
+    function. A rank's error, or no answer within `timeout` seconds (a
+    collective some rank never joined), raises and tears the pool down."""
+
+    def __init__(self, world: int, store_dir, *, timeout: float = 300.0):
+        ctx = multiprocessing.get_context("spawn")
+        os.makedirs(store_dir, exist_ok=True)
+        init = f"file://{os.path.abspath(os.fspath(store_dir))}/store"
+        self.timeout = timeout
+        self.tasks = [ctx.Queue() for _ in range(world)]
+        self.results = [ctx.Queue() for _ in range(world)]
+        self.procs = [ctx.Process(target=_rank_main,
+                                  args=(r, world, init, self.tasks[r],
+                                        self.results[r]),
+                                  name=f"rank-{r}", daemon=True)
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn: Callable, *args) -> list:
+        for q in self.tasks:
+            q.put((fn, args))
+        out, errors = [], []
+        deadline = time.monotonic() + self.timeout
+        for r, q in enumerate(self.results):
+            ok, val = self._result(r, q, deadline, fn.__name__)
+            out.append(val)
+            if not ok:
+                errors.append(f"rank {r}:\n{val}")
+        if errors:
+            self.close()
+            raise RuntimeError(f"{fn.__name__} failed in "
+                               f"{len(errors)} rank(s):\n" + "\n".join(errors))
+        return out
+
+    def _result(self, r: int, q, deadline: float, what: str):
+        """Rank r's (ok, value), or raise once it has died or the deadline
+        has passed (the pool is then torn down)."""
+        while True:
+            try:
+                return q.get(timeout=min(1.0, max(0.0, deadline
+                                                  - time.monotonic())))
+            except _queue.Empty:
+                pass
+            dead = [(i, p.exitcode) for i, p in enumerate(self.procs)
+                    if not p.is_alive()]
+            if dead or time.monotonic() >= deadline:
+                self.close()
+                why = (f"rank(s) exited: {dead}" if dead else
+                       f"no answer within {self.timeout} s")
+                raise RuntimeError(f"rank {r} gave no result for {what}: "
+                                   f"{why}")
+
+    def close(self):
+        """Stop every rank: a clean exit where it can, else terminated."""
+        for q in self.tasks:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=10)
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
 
 
 def io_rank_range(n_io_ranks: int, process_id: int, num_processes: int):

@@ -6,6 +6,12 @@ The step updates the state in place (params, moments, residuals, step)
 and returns it with the step's metrics as 0-d tensors. Gradients are
 taken with `torch.autograd.grad` of detached aliases of the params, so the
 state's tensors never carry `requires_grad`.
+
+A state of DTensors on a one-device mesh (e.g. from
+`ckpt.checkpoint.restore_sharded`) steps through its local tensors, which
+share the DTensors' storage, so no DTensor reaches a kernel. A step over a
+mesh of more than one device is not ported yet (ROADMAP.md Queue 1, item
+7b) and raises.
 """
 from __future__ import annotations
 
@@ -14,7 +20,20 @@ import torch
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.optim.grad_compress import compress_with_feedback
-from repro_torch.optim.tree import tree_leaves, tree_unflatten
+from repro_torch.optim.tree import tree_leaves, tree_map, tree_unflatten
+
+
+def _local(x):
+    """A DTensor on a one-device mesh as its local tensor (same storage)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    if x.device_mesh.size() > 1:
+        raise NotImplementedError(
+            f"a train step over a {tuple(x.device_mesh.shape)} mesh: the "
+            f"forward and train step over a multi-device mesh are ROADMAP.md "
+            f"Queue 1 item 7b; restore onto a one-device mesh")
+    return x.to_local()
 
 
 def _grads_and_metrics(cfg, params, batch, kw):
@@ -44,7 +63,10 @@ def make_train_step(cfg, hp: AdamWConfig, *, grad_compression: bool = False,
               ssd_chunk=ssd_chunk)
 
     def train_step(state, batch):
-        params = state["params"]
+        # the state's tensors, DTensors' local ones in their place: the
+        # in-place updates below land in the state itself
+        local = tree_map(_local, state)
+        params = local["params"]
         if microbatches == 1:
             grads, metrics = _grads_and_metrics(cfg, params, batch, kw)
         else:
@@ -61,13 +83,16 @@ def make_train_step(cfg, hp: AdamWConfig, *, grad_compression: bool = False,
             grads = tree_unflatten(params, [a / k for a in acc])
             metrics = {n: torch.stack([m[n] for m in ms]).mean()
                        for n in ms[0]}
-        if grad_compression:
-            grads, state["residuals"] = compress_with_feedback(
-                grads, state["residuals"])
-        _, _, om = adamw_update(params, grads, state["opt"], state["step"],
-                                hp)
         with torch.no_grad():
-            state["step"] += 1
+            if grad_compression:
+                grads, residuals = compress_with_feedback(
+                    grads, local["residuals"])
+                for dst, src in zip(tree_leaves(local["residuals"]),
+                                    tree_leaves(residuals)):
+                    dst.copy_(src)
+            _, _, om = adamw_update(params, grads, local["opt"],
+                                    local["step"], hp)
+            local["step"] += 1
         return state, {**metrics, **om}
 
     return train_step

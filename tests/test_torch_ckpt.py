@@ -288,11 +288,33 @@ def test_manager_device_compress_counts_the_shuffled_bytes(tmpdir_path):
 
 
 def test_restore_latest_onto_a_mesh_raises(tmpdir_path):
+    """Shardings that miss the state's leaves make `restore_sharded` raise,
+    so the manager finds no checkpoint that restores onto the mesh and
+    returns None; shardings on a one-device mesh restore DTensors."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import replicated
     state = _pic_state()
     m = CheckpointManager(tmpdir_path, every=1, async_write=False)
     m.save(state, 1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        m.restore_latest(state, shardings={})
+    with pytest.raises(KeyError):
+        ckpt.restore_sharded(tmpdir_path, state, {})
+    assert m.restore_latest(state, shardings={}) is None
+    mesh = make_mesh((1,), ("data",), device_type="cpu")
+    try:
+        flat = ckpt.flatten_state(state)
+        sh = ckpt.unflatten_like(state, {k: replicated(mesh) for k in flat})
+        back, step = m.restore_latest(state, shardings=sh)
+    finally:
+        dist.destroy_process_group()
+    assert step == 1
+    got = ckpt.flatten_state(back)
+    assert all(isinstance(got[k], DTensor) for k, v in flat.items()
+               if isinstance(v, torch.Tensor))
+    _assert_same_state(ckpt.unflatten_like(state, {
+        k: v.to_local() if isinstance(v, DTensor) else v
+        for k, v in got.items()}), state)
     assert m.restore_latest(state)[1] == 1
 
 

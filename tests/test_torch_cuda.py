@@ -717,3 +717,139 @@ def test_serving_flash_call_is_unchanged_without_grad(cuda_device):
     train_out, lse = fops.flash_forward(q, k, v)
     torch.cuda.synchronize()
     assert torch.equal(out, train_out) and torch.isfinite(lse).all()
+
+
+# ---------------------------------------------- the mesh layer on the card
+_MESH_AXES = ("data", "model")
+
+
+def _small_mesh_state() -> dict:
+    return {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8),
+            "b": torch.arange(32, dtype=torch.float32).reshape(4, 8)
+                      .to(torch.bfloat16),
+            "step": torch.tensor(7, dtype=torch.int32)}
+
+
+def _rank_save_sharded_on_cpu(directory):
+    """A rank of a 4-rank gloo job on the CPU: the small state sharded on a
+    (2, 2) mesh, saved collectively."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.ckpt.checkpoint import save_checkpoint
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.sharding import P, to_placements
+    mesh = tmesh.make_mesh((2, 2), _MESH_AXES, device_type="cpu")
+    specs = {"w": P("data", "model"), "b": P(None, "model"), "step": P()}
+    state = {k: distribute_tensor(v, mesh, to_placements(specs[k], mesh))
+             for k, v in _small_mesh_state().items()}
+    return str(save_checkpoint(directory, state, 3, n_io_ranks=4))
+
+
+@pytest.fixture()
+def card_mesh(cuda_device):
+    """A (1, 1) mesh on the card: a one-rank nccl group that `make_mesh`
+    brings up itself, torn down after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    assert not dist.is_initialized()
+    mesh = tmesh.make_mesh((1, 1), _MESH_AXES)
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def test_make_mesh_on_the_card(card_mesh):
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    assert card_mesh.device_type == "cuda"
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    assert tmesh.mesh_summary(card_mesh) == {
+        "axis_names": ["data", "model"], "shape": [1, 1], "n_devices": 1}
+
+
+def test_restore_sharded_onto_the_card_from_a_cpu_sharded_checkpoint(
+        card_mesh, tmp_path):
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt.checkpoint import restore_sharded
+    from repro_torch.launch.distributed import RankPool
+    from repro_torch.launch.sharding import NamedSharding, P
+    with RankPool(4, tmp_path / "store", timeout=180) as pool:
+        pool.run(_rank_save_sharded_on_cpu, str(tmp_path / "ckpt"))
+    full = _small_mesh_state()
+    like = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in full.items()}
+    specs = {"w": P("model", "data"), "b": P(None, "data"), "step": P()}
+    out, step = restore_sharded(tmp_path / "ckpt", like,
+                                {k: NamedSharding(card_mesh, s)
+                                 for k, s in specs.items()})
+    assert step == 3
+    for k, v in full.items():
+        assert isinstance(out[k], DTensor)
+        loc = out[k].to_local()
+        assert loc.is_cuda and loc.dtype == v.dtype
+        assert torch.equal(loc.cpu(), v), k
+
+
+def _dtensor_state(state, mesh):
+    """`state` as DTensors on a one-device mesh, sharing its storage."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.optim.tree import tree_map
+    return tree_map(lambda t: DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False), state)
+
+
+def test_dtensor_state_device_compressed_save_makes_the_plain_files(
+        card_mesh, tmp_path):
+    from repro_torch.ckpt.checkpoint import checkpoint_path, save_checkpoint
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.core.bp_engine import EngineConfig
+    from repro_torch.train.state import init_train_state
+    cfg = reduce_for_smoke(get_config("smollm-360m"))
+    plain = init_train_state(cfg, 0)
+    engine = EngineConfig(codec="blosc")
+    launches = []
+    for sub, state in (("plain", plain),
+                       ("dtensor", _dtensor_state(plain, card_mesh))):
+        before = bops.shuffle_blocks.launches
+        save_checkpoint(tmp_path / sub, state, 1, engine_config=engine,
+                        device_compress=True)
+        launches.append(bops.shuffle_blocks.launches - before)
+    assert launches[0] == launches[1] > 0
+    p, d = (checkpoint_path(tmp_path / s, 1) for s in ("plain", "dtensor"))
+    names = sorted(x.name for x in p.iterdir())
+    for name in names:
+        if name.startswith("data.") or name == "md.0":
+            assert (p / name).read_bytes() == (d / name).read_bytes(), name
+
+
+def test_train_step_on_a_dtensor_state_equals_the_plain_state(card_mesh):
+    import os
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.data.pipeline import SyntheticTokens, to_device
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+    cfg = reduce_for_smoke(get_config("smollm-360m"))
+    batch = to_device(SyntheticTokens(cfg.padded_vocab, 64, 4, seed=0)
+                      .batch_at(0), "cuda")
+    fn = make_train_step(cfg, AdamWConfig(warmup_steps=1), q_chunk=64,
+                         kv_chunk=64)
+    plain = init_train_state(cfg, 0)
+    dstate = _dtensor_state(init_train_state(cfg, 0), card_mesh)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = fops.flash_attention.launches
+        _, m_plain = fn(plain, batch)
+        _, m_d = fn(dstate, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    # remat: a forward and a recompute launch a layer, in each step
+    assert fops.flash_attention.launches - before == 2 * 2 * cfg.n_layers
+    assert float(m_plain["loss"]) == float(m_d["loss"])
+    for a, b in zip(tree_leaves(plain), tree_leaves(dstate)):
+        assert torch.equal(a, b.to_local())
+    assert int(dstate["step"].to_local()) == 1

@@ -52,7 +52,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "optim.grad_compress", "data.pipeline", "train.state",
                  "train.step", "train.trainer", "launch.train",
                  "examples.sst_streaming", "examples.quickstart",
-                 "examples.train_lm"):
+                 "examples.train_lm", "meshctx", "launch.mesh",
+                 "launch.sharding", "launch.shapes"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
