@@ -565,10 +565,11 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
                 if isinstance(a, torch.Tensor) else a == b)
         if not same:
             raise AssertionError(f"restored leaf {name} differs")
-    # the parallel write plane on the same state: the dump through 4
-    # writer processes, then a manager checkpoint behind the next chunk
-    par = run_parallel_io(torch, workdir, cfg, state, written, series_path,
-                          back, n_io_ranks, timed)
+    # the parallel write plane on a quarter of the state's slots: the dump
+    # through 4 writer processes, then a manager checkpoint behind the
+    # next chunk
+    par = run_parallel_io(torch, workdir, cfg, state, written, n_io_ranks,
+                          timed)
     steps += par["steps"]
     restored = sim.PicState(**back)
     restored = timed("restart_compute_s",
@@ -654,20 +655,37 @@ def _metric_sums(METRICS) -> dict:
     return out
 
 
-def run_parallel_io(torch, workdir: pathlib.Path, cfg, state, written: dict,
-                    series_path: pathlib.Path, serial_back: dict,
-                    n_io_ranks: int, timed) -> dict:
-    """The multi-process write plane on the main path's state, after the
-    serial dump and checkpoint:
-    - the diagnostics and the particle dump again, the same puts in the
-      same order, through `open_diagnostic_series(parallel_io=4)` with the
-      serial series' engine config; its data.* and md.0 must equal the
-      serial series' byte for byte, and every variable must read back as
-      stored;
+#: the parallel-plane phase runs at 1 / PARALLEL_CUT of the main path's
+#: slots a species (its depth cut for the script's time limit; the serial
+#: path stays unreduced)
+PARALLEL_CUT = 4
+
+
+def _cut_state(state, cfg, cut: int):
+    """(cfg, state) with each species' first capacity / cut slots."""
+    q = cfg.capacity // cut
+    sp = {k: getattr(state, k)._replace(
+        x=getattr(state, k).x[:q].clone(), v=getattr(state, k).v[:q].clone(),
+        w=getattr(state, k).w[:q].clone(),
+        alive=getattr(state, k).alive[:q].clone())
+        for k in ("electrons", "ions", "neutrals")}
+    return dataclasses.replace(cfg, capacity=q), state._replace(**sp)
+
+
+def run_parallel_io(torch, workdir: pathlib.Path, full_cfg, full_state,
+                    written: dict, n_io_ranks: int, timed) -> dict:
+    """The multi-process write plane, after the serial dump and
+    checkpoint, on the first 1 / PARALLEL_CUT of the main path's slots of
+    each species (the cut is printed):
+    - the diagnostics and the particle dump, serially (the reference) and
+      through `open_diagnostic_series(parallel_io=4)` with the same engine
+      config and the same puts in the same order; the parallel series'
+      data.* and md.0 must equal the serial one's byte for byte, and
+      every variable must read back as stored;
     - a `WriterPlane(4)` spawned on its own (the manager's lazy plane),
       then a device-compressed `CheckpointManager(parallel_io=4,
       async_write=True)` save behind the next 10-step chunk, `wait()`,
-      and `restore_latest`, which must equal the serial restore bit for
+      and `restore_latest`, which must equal the saved state bit for
       bit; its device-shuffled bytes must be 72 C + 8, and its shuffle
       launches are returned for the caller's check.
     The shm transport needs 4 rings of 64 MiB in /dev/shm; where there is
@@ -683,6 +701,11 @@ def run_parallel_io(torch, workdir: pathlib.Path, cfg, state, written: dict,
     from repro_torch.kernels.bitshuffle import ops as bops
     from repro_torch.pic import simulation as sim
 
+    cfg, state = _cut_state(full_state, full_cfg, PARALLEL_CUT)
+    print(f"parallel I/O: at {cfg.capacity} slots a species, 1/"
+          f"{PARALLEL_CUT} of the main path's {full_cfg.capacity} (the "
+          f"phase's depth cut for the time limit; the serial path above "
+          f"ran unreduced)")
     W = 4
     try:
         shm_free = shutil.disk_usage("/dev/shm").free
@@ -696,9 +719,28 @@ def run_parallel_io(torch, workdir: pathlib.Path, cfg, state, written: dict,
           + ("" if transport == "shm" else
              f" (the shm rings need {W} x {DEFAULT_RING_BYTES} bytes)"))
     out = {"dev_shm_free_bytes": shm_free, "transport": transport,
-           "writers": W, "t": {}}
+           "writers": W, "t": {}, "capacity": cfg.capacity,
+           "cut": PARALLEL_CUT}
     engine = EngineConfig(aggregators=4, codec="blosc", workers=4)
     dump_step = int(state.step)
+
+    # ---- the serial reference: the same diagnostics and the cut dump
+    series_path = workdir / "diag_cut.bp4"
+
+    def sdump():
+        series = Series(series_path, "w", n_ranks=n_io_ranks,
+                        engine_config=engine)
+        for step, diag in written.items():
+            sim.write_diagnostics_openpmd(
+                series, types.SimpleNamespace(step=step), cfg,
+                n_io_ranks=n_io_ranks, diag=diag)
+            if step != dump_step:
+                series.flush()
+        sim.write_particle_dump_openpmd(series, state, cfg,
+                                        n_io_ranks=n_io_ranks)
+        series.flush()
+        series.close()
+    timed("parallel_serial_dump_s", sdump)
 
     # ---- the dump through W writer processes
     shm0 = _transport_bytes(MONITOR, CTR)
@@ -783,6 +825,8 @@ def run_parallel_io(torch, workdir: pathlib.Path, cfg, state, written: dict,
         shuf0 = bops.shuffle_blocks.launches
         shm0 = _transport_bytes(MONITOR, CTR)
         saved = state._asdict()
+        want = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                for k, v in flatten_state(saved).items()}
         torch.cuda.synchronize()
         METRICS.reset()
         METRICS.enable()
@@ -822,7 +866,7 @@ def run_parallel_io(torch, workdir: pathlib.Path, cfg, state, written: dict,
         raise AssertionError(f"parallel checkpoint: COMPRESS_DEVICE_BYTES "
                              f"{out['device_bytes']} != "
                              f"{72 * cfg.capacity + 8}")
-    a, b = flatten_state(serial_back), flatten_state(back)
+    a, b = want, flatten_state(back)
     if list(a) != list(b):
         raise AssertionError("parallel restore: leaves differ in name")
     for name, x in a.items():
@@ -1685,8 +1729,10 @@ def run_insitu(torch, workdir: pathlib.Path, cfg, state, *, chunks: int = 3,
 
 
 # ===================================================================== training
-#: the zamba2 train step: the launcher's defaults (batch 8, seq 256)
-TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "zamba2-2.7b", 8, 256, 3
+#: the zamba2 train step: the launcher's defaults (batch 8, seq 256); 2
+#: steps against the plain versions (3 until PR 19, cut for the time
+#: limit), a 3rd profiled
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "zamba2-2.7b", 8, 256, 2
 #: the noise floor's other chunking of the plain versions (the trainer's
 #: are min(256, seq) for attention and min(64, seq) for SSD)
 FLOOR_ATTN_CHUNK, FLOOR_SSD_CHUNK = 128, 32
@@ -1960,6 +2006,121 @@ def run_train_step(torch, dev, cfg=None) -> dict:
     return res
 
 
+#: the one-device DTensor phase: (arch, layers), full width; zamba2's
+#: depth cut to one unit (6 Mamba2 layers and the shared block), the
+#: fewest layers that hold both
+DTENSOR_PATHS = (("smollm-360m", 4), ("zamba2-2.7b", 6))
+
+
+def _tree_equal(torch, a, b) -> list:
+    """The indices of the leaves of two trees (b's may be DTensors) that
+    differ in a bit."""
+    from repro_torch.meshctx import is_dtensor
+    from repro_torch.optim.tree import tree_leaves
+    return [i for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b)))
+            if not torch.equal(x, y.to_local() if is_dtensor(y) else y)]
+
+
+def run_dtensor_steps(torch, dev, smi: str) -> list:
+    """The train step on a (1, 1) cuda mesh with DTensor params, moments,
+    step and batch (the kernels launch through `local_map`), against the
+    plain-tensor step of the same state, for each of DTENSOR_PATHS at full
+    width (params of seed 0, batch 8 x 256, the trainer's chunks, under
+    deterministic algorithms): step 1 and step 2 of each must be
+    bit-equal in the loss and every leaf of the state; step 2 of each is
+    profiled (wall and device ms, idle share, launches) and each step's
+    flash and SSD launches are read from their counts, zeroed just before
+    it, against `train_launches`."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.train.state import (init_train_state,
+                                         train_state_shardings)
+    from repro_torch.train.step import make_train_step
+
+    out = []
+    mesh = make_mesh((1, 1), MESH_AXES, device_type=dev.type)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for arch, layers in DTENSOR_PATHS:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+            hp = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=10)
+            batches = _train_batches(torch, cfg, dev, 2, TRAIN_BATCH,
+                                     TRAIN_SEQ)
+            plain = init_train_state(cfg, 0, device=dev)
+            shardings = train_state_shardings(cfg, mesh)
+            dstate = tree_map(lambda t, sh: distribute_tensor(
+                t.clone(), sh.mesh, sh.placements), plain, shardings)
+            step_fn = make_train_step(cfg, hp, q_chunk=min(256, TRAIN_SEQ),
+                                      kv_chunk=min(256, TRAIN_SEQ),
+                                      ssd_chunk=min(64, TRAIN_SEQ))
+            res = {"arch": cfg.name, "n_layers": layers,
+                   "n_params": cfg.n_params(), "batch": TRAIN_BATCH,
+                   "seq": TRAIN_SEQ}
+            expect = train_launches(cfg)
+            for i, b in enumerate(batches):
+                for name, state in (("plain", plain), ("dtensor", dstate)):
+                    fops.flash_attention.launches = 0
+                    sops.ssd_scan.launches = 0
+                    torch.cuda.synchronize()
+                    prof = (profile(activities=[ProfilerActivity.CUDA])
+                            if i == 1 else contextlib.nullcontext())
+                    with prof:
+                        tp = time.perf_counter()
+                        _, m = step_fn(state, b)
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - tp
+                    got = {"flash_attention": fops.flash_attention.launches,
+                           "ssd_scan": sops.ssd_scan.launches}
+                    if got != expect:
+                        raise AssertionError(f"{arch} {name} step {i + 1}: "
+                                             f"launches {got} != {expect}")
+                    row = res.setdefault(name, {"loss": [], "wall_ms": [],
+                                                "launches": got})
+                    row["loss"].append(float(m["loss"]))
+                    row["wall_ms"].append(1e3 * wall)
+                    if i == 1:
+                        row["profiled"] = _profile_rows(prof, wall, 1)
+                differ = _tree_equal(torch, plain, dstate)
+                if differ or res["plain"]["loss"][i] != \
+                        res["dtensor"]["loss"][i]:
+                    raise AssertionError(
+                        f"{arch} step {i + 1}: the DTensor step differs from "
+                        f"the plain one (loss {res['dtensor']['loss'][i]} vs "
+                        f"{res['plain']['loss'][i]}; leaves {differ[:8]})")
+            res["bit_equal"] = True
+            res["phase_s"] = time.perf_counter() - t0
+            print(json.dumps({"dtensor_step": res}))
+            out.append(res)
+            del plain, dstate, step_fn
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+        dist.destroy_process_group()
+    for r in out:
+        p, d = r["plain"], r["dtensor"]
+        pp, dp = p["profiled"], d["profiled"]
+        print(f"DTensor step on a (1, 1) cuda mesh ({r['arch']}, "
+              f"{r['n_layers']} layers, {r['n_params']} params, batch "
+              f"{r['batch']} x {r['seq']}; {smi}): bit-equal to the plain "
+              f"step; wall ms {d['wall_ms']} (plain {p['wall_ms']}); "
+              f"profiled step device ms {dp['device_ms']} (plain "
+              f"{pp['device_ms']}), idle share {dp['idle_share']} (plain "
+              f"{pp['idle_share']}), launches {dp['launches']} (plain "
+              f"{pp['launches']}); flash {d['launches']['flash_attention']},"
+              f" SSD {d['launches']['ssd_scan']} a step; phase "
+              f"{r['phase_s']:.1f} s")
+    return out
+
+
 def trainer_setup(full=None):
     """The trainer phase's config (smollm-360m at full width, depth cut to
     TRAINER_LAYERS), its TrainerConfig (batch 8, seq 256, 4 steps,
@@ -2116,6 +2277,14 @@ def run_trainer(torch, dev, workdir: pathlib.Path, full=None) -> dict:
 #: the mesh phase's layout: smollm's 15 heads do not divide the `model`
 #: axis of 2, so attention takes the head_dim layout
 MESH_SHAPE, MESH_AXES, MESH_RANKS = (2, 2), ("data", "model"), 4
+#: where the mesh phase's 4 gloo ranks keep their tensors, decided once
+#: (PERF.md §6, PR 19; `chip_mesh_probe.py`): NCCL refuses two ranks on one
+#: card; gloo runs the c10d collectives on CUDA tensors of 4 ranks sharing
+#: it, but a DTensor train step on such a cuda mesh made no progress, so
+#: the ranks keep their tensors on the host
+MESH_DEVICE = "cpu"
+#: CPU threads a rank of the mesh job takes (4 ranks on the 8 cores)
+MESH_RANK_THREADS = 2
 
 
 def _box_bytes(state) -> int:
@@ -2134,61 +2303,105 @@ def mesh_rank_up() -> int:
     return dist.get_rank()
 
 
-def mesh_rank_job(src: str, step: int, dst: str, full) -> dict:
-    """One rank of the mesh phase's 4-rank gloo job on the host (its
-    tensors never touch the card): restore the trainer's checkpoint onto
-    the (2, 2) mesh under `train_state_shardings`, hold each local shard
-    against the same slice of a full restore of the same file bit for bit,
-    and save the state sharded (every rank's chunks, replicas included,
-    each shard byte-shuffled by the plain version of the transpose on the
-    host)."""
+def _digests(state) -> dict:
+    """name -> [(box offset, sha1 of the local bytes)] of a state's
+    DTensor leaves (a group's layers in order)."""
+    import hashlib
+    import torch
+    from repro_torch.ckpt.checkpoint import Stacked, _local_box, flatten_state
+    out = {}
+    for name, leaf in flatten_state(state).items():
+        out[name] = []
+        for p in (leaf.parts if isinstance(leaf, Stacked) else [leaf]):
+            loc = p.to_local().detach().contiguous().cpu()
+            out[name].append((list(_local_box(p)) if p.ndim else [],
+                              list(loc.shape), hashlib.sha1(
+                                  loc.reshape(-1).view(torch.uint8).numpy()
+                              ).hexdigest()))
+    return out
+
+
+def mesh_rank_job(src: str, step: int, dst: str, full, dst_step: str,
+                  device: str) -> dict:
+    """One rank of the mesh phase's 4-rank gloo job, its tensors on
+    `device` (MESH_DEVICE): restore the trainer's checkpoint onto the
+    (2, 2) mesh under `train_state_shardings` (the digests of its shards
+    go home, for the card to hold against a full restore) and save it
+    sharded one writer a rank (`parallel_io=4`, each rank's shards
+    byte-shuffled on its device or by the plain transpose on the host).
+    Then one train step of the sharded state on the Trainer's batch of
+    that step (the step function the Trainer builds, over the mesh), and
+    a save of the stepped state one writer a rank: each rank's save
+    seconds, the bytes that reached rank 0 and the digests of its
+    shards."""
     import torch
     import torch.distributed as dist
-    from repro_torch.ckpt.checkpoint import (Stacked, _local_box,
-                                             flatten_state,
-                                             restore_checkpoint,
-                                             restore_sharded,
-                                             save_checkpoint)
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.ckpt.checkpoint import restore_sharded, save_checkpoint
     from repro_torch.core.darshan import CTR, MONITOR
+    from repro_torch.data.pipeline import SyntheticTokens, to_device
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.optim.tree import tree_map
     from repro_torch.train.state import (train_state_shapes,
                                          train_state_shardings)
-    cfg, _full, _tcfg, _hp, engine = trainer_setup(full)
-    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device_type="cpu")
+    from repro_torch.train.step import make_train_step
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(MESH_RANK_THREADS)
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(
+        "cpu")
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cfg, _full, tcfg, hp, engine = trainer_setup(full)
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device_type=device)
     MONITOR.reset()
     t0 = time.perf_counter()
     state, at = restore_sharded(src, train_state_shapes(cfg),
                                 train_state_shardings(cfg, mesh), step=step)
+    sync()
     t_restore = time.perf_counter() - t0
     read = MONITOR.report()["total"].get(CTR.POSIX_BYTES_READ, 0.0)
+    restored = _digests(state)
+
+    def save(path, state, at):
+        """A save one writer a rank: (seconds, SAVE_STATS, this rank's
+        Darshan bytes written to data.*)."""
+        MONITOR.reset()
+        sync()
+        t0 = time.perf_counter()
+        save_checkpoint(path, state, at, engine_config=engine,
+                        device_compress=True, parallel_io=MESH_RANKS,
+                        n_io_ranks=MESH_RANKS)
+        wrote = sum(c.get(CTR.POSIX_BYTES_WRITTEN, 0.0) for p, c in
+                    MONITOR.snapshot()["per_file"].items()
+                    if pathlib.Path(p).name.startswith("data."))
+        return time.perf_counter() - t0, dict(ckpt.SAVE_STATS), wrote
+
+    t_save, _, _ = save(dst, state, at)
+    # ---- one train step over the (2, 2) mesh
+    data = SyntheticTokens(cfg.padded_vocab, tcfg.seq_len, tcfg.global_batch,
+                           seed=tcfg.seed)
+    batch = to_device(data.batch_at(at), dev)
+    step_fn = make_train_step(cfg, hp, q_chunk=min(256, tcfg.seq_len),
+                              kv_chunk=min(256, tcfg.seq_len),
+                              ssd_chunk=min(64, tcfg.seq_len))
+    sync()
     t0 = time.perf_counter()
-    like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
-                    train_state_shapes(cfg))
-    whole, _ = restore_checkpoint(src, like, step=step)
-    t_whole = time.perf_counter() - t0
-    checked = 0
-    want = flatten_state(whole)
-    for name, leaf in flatten_state(state).items():
-        ws = want[name].parts if isinstance(leaf, Stacked) else [want[name]]
-        for p, w in zip(leaf.parts if isinstance(leaf, Stacked) else [leaf],
-                        ws):
-            loc = p.to_local()
-            sl = tuple(slice(o, o + e) for o, e in
-                       zip(_local_box(p), loc.shape))
-            if not torch.equal(loc, w[sl] if sl else w):
-                raise AssertionError(f"rank {dist.get_rank()}: {name} "
-                                     f"differs from the full restore")
-            checked += 1
-    del whole, want
-    t0 = time.perf_counter()
-    save_checkpoint(dst, state, at, engine_config=engine,
-                    device_compress=True)
-    t_save = time.perf_counter() - t0
+    state, m = step_fn(state, batch)
+    sync()
+    t_step = time.perf_counter() - t0
+    # ---- the stepped state saved one writer a rank
+    t_by_rank, by_rank, written = save(dst_step, state, at + 1)
     return {"rank": dist.get_rank(), "coordinate": mesh.get_coordinate(),
-            "step": at, "read_bytes": read, "box_bytes": _box_bytes(state),
-            "shards_checked": checked, "restore_s": t_restore,
-            "full_restore_s": t_whole, "save_s": t_save}
+            "device": str(dev), "step": at, "read_bytes": read,
+            "box_bytes": _box_bytes(state), "restore_s": t_restore,
+            "save_s": t_save, "step_s": t_step, "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "save_by_rank_s": t_by_rank,
+            "by_rank_bytes_written": by_rank["bytes_written"],
+            "by_rank_darshan_bytes_written": written,
+            "by_rank_bytes_to_rank0": by_rank["bytes_to_rank0"],
+            "by_rank_encode_s": by_rank["encode_s"],
+            "by_rank_write_s": by_rank["write_s"],
+            "restored_digests": restored, "digests": _digests(state)}
 
 
 def _shuffled_chunks(state) -> int:
@@ -2203,16 +2416,131 @@ def _shuffled_chunks(state) -> int:
     return n
 
 
+def _by_rank_checkpoint(path: pathlib.Path, step: int, ranks) -> dict:
+    """The stepped state's checkpoint, saved one writer a rank: each
+    data.<w> holds exactly rank w's chunks (its Darshan bytes written),
+    and what reached rank 0 (the chunk tables)."""
+    from repro_torch.core.bp_engine import BpReader
+    sizes = {f.name: f.stat().st_size for f in sorted(path.glob("data.*"))}
+    held: dict = {}
+    with BpReader(path) as r:
+        for v in r.var_names(step):
+            for c in r.iter_chunks(step, v):
+                held.setdefault(f"data.{c.agg}", {}).setdefault(c.rank, 0)
+                held[f"data.{c.agg}"][c.rank] += c.nbytes
+    for r in ranks:
+        mine = held.get(f"data.{r['rank']}", {})
+        if set(mine) != {r["rank"]} or mine[r["rank"]] != \
+                r["by_rank_bytes_written"] or \
+                r["by_rank_darshan_bytes_written"] != mine[r["rank"]]:
+            raise AssertionError(f"one writer a rank: data.{r['rank']} "
+                                 f"holds {mine}, rank {r['rank']} wrote "
+                                 f"{r['by_rank_bytes_written']}")
+    return {"subfile_bytes": sizes,
+            "bytes_to_rank0": ranks[0]["by_rank_bytes_to_rank0"]}
+
+
+def _check_digests(torch, state, digests, what: str) -> int:
+    """Each rank's shard digests (`_digests`) against the same boxes of
+    `state` (whole tensors, or DTensors on a one-device mesh), bit for
+    bit; returns the number of boxes checked."""
+    import hashlib
+    from repro_torch.ckpt.checkpoint import Stacked, flatten_state
+    flat = flatten_state(state)
+    n = 0
+    for dig in digests:
+        for name, boxes in dig.items():
+            leaf = flat[name]
+            parts = leaf.parts if isinstance(leaf, Stacked) else [leaf]
+            for p, (off, ext, sha) in zip(parts, boxes):
+                loc = p.to_local() if hasattr(p, "to_local") else p
+                sl = tuple(slice(o, o + e) for o, e in zip(off, ext))
+                x = (loc[sl] if sl else loc).contiguous().cpu()
+                if hashlib.sha1(x.reshape(-1).view(torch.uint8).numpy()
+                                ).hexdigest() != sha:
+                    raise AssertionError(f"{what}: {name} at {off} differs "
+                                         f"from the rank's shard")
+                n += 1
+    return n
+
+
+def _sharded_step_checks(torch, dev, cfg, tcfg, hp, mesh, at_state,
+                         card_step, card_loss, ranks, digests,
+                         dst_step, step) -> dict:
+    """The 4 ranks' step against the card's step from the same state:
+    the stepped checkpoint restored 4 -> 1 on the card must be bit-equal
+    to the shards the ranks saved (their digests); its params must be
+    within 2 noise floors of the card's step through the kernels (PR 17's
+    train check: the floor is the plain versions, chunked otherwise, from
+    the same state on the card), the params' RMS and largest difference
+    alike. The loss is held to 1e-3 (the CPU tests' step parity,
+    `tests/test_torch_mesh_step.py`): the mesh rounds its partial sums to
+    bf16 where one device sums whole, which moves the forward's loss more
+    than chunking the plain versions otherwise does (the floor is printed
+    beside it)."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticTokens, to_device
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.train.state import (train_state_shapes,
+                                         train_state_shardings)
+    from repro_torch.train.step import make_train_step
+    t0 = time.perf_counter()
+    back, got_step = CheckpointManager(dst_step).restore_latest(
+        train_state_shapes(cfg), shardings=train_state_shardings(cfg, mesh))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if got_step != step:
+        raise AssertionError(f"stepped checkpoint at step {got_step}")
+    n = _check_digests(torch, back, digests, "4 -> 1 restore of the "
+                       "stepped state")
+    got = [x.to_local() for x in tree_leaves(back["params"])]
+    data = SyntheticTokens(cfg.padded_vocab, tcfg.seq_len, tcfg.global_batch,
+                           seed=tcfg.seed)
+    batch = to_device(data.batch_at(step - 1), dev)
+    fn = make_train_step(cfg, hp, q_chunk=FLOOR_ATTN_CHUNK,
+                         kv_chunk=FLOOR_ATTN_CHUNK,
+                         ssd_chunk=min(FLOOR_SSD_CHUNK, tcfg.seq_len))
+    with routed(plain_flash_train, plain_scan):
+        at_state, m = fn(at_state, batch)
+    floor_loss = float(m["loss"])
+    floor = [x for x in tree_leaves(at_state["params"])]
+    gaps = {"loss": {"ranks": max(abs(r["loss"] - card_loss)
+                                  for r in ranks),
+                     "floor": abs(floor_loss - card_loss)}}
+    pr, pf = _param_gap(torch, card_step, got), _param_gap(torch, card_step,
+                                                           floor)
+    gaps["params_rms"] = {"ranks": pr["rms"], "floor": pf["rms"]}
+    gaps["params_max"] = {"ranks": pr["max"], "floor": pf["max"]}
+    res = {"ranks_loss": [r["loss"] for r in ranks], "card_loss": card_loss,
+           "floor_loss": floor_loss, "gaps": gaps,
+           "restore_4_to_1_s": restore_s, "boxes_bit_equal": n}
+    print(json.dumps({"mesh_sharded_step": res}))
+    if not gaps["loss"]["ranks"] < 1e-3:
+        raise AssertionError(f"sharded step: loss {gaps['loss']['ranks']} "
+                             f"from the card's (limit 1e-3)")
+    for key in ("params_rms", "params_max"):
+        g = gaps[key]
+        if not g["ranks"] <= 2 * g["floor"]:
+            raise AssertionError(f"sharded step {key}: ranks vs card "
+                                 f"{g['ranks']} > 2 noise floors "
+                                 f"({g['floor']})")
+    return res
+
+
 def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
              smi: str) -> dict:
     """The mesh phase: an elastic 1 -> 4 -> 1-rank round trip of the
     trainer's step-2 checkpoint (written on the card by the run that
     crashed, one chunk a leaf or layer), then the uninterrupted run's
     remaining steps on the card from the round trip's state.
-    1. 1 -> 4: a 4-rank gloo job on the host (processes of this script,
-       a FileStore in the workdir) restores it onto a (2, 2) ("data",
-       "model") mesh under `train_state_shardings`, each rank checking its
-       shards against a full restore bit for bit, and saves it sharded.
+    1. 1 -> 4: a 4-rank gloo job (processes of this script, a FileStore
+       in the workdir, tensors on MESH_DEVICE) restores it onto a (2, 2)
+       ("data", "model") mesh under `train_state_shardings` (each rank's
+       shards bit-equal to the same boxes of a full restore on the card,
+       by digest) and saves it sharded one writer a rank; then the ranks
+       take one train step on the mesh and save the stepped state one
+       writer a rank (`mesh_rank_job`); each data.<w> of that must hold
+       exactly rank w's chunks.
     2. 4 -> 1: on the card, a (1, 1) mesh (`make_mesh`: a one-rank nccl
        group) and `CheckpointManager.restore_latest(like, shardings=)` of
        the 4-rank checkpoint, bit-equal to a full restore of the card's.
@@ -2220,7 +2548,10 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
        the DTensor state under `use_mesh` and deterministic algorithms,
        one device-compressed save through the manager; the losses and the
        final state bit-equal to the uninterrupted run's, with the flash and
-       `shuffle_blocks` launches the steps and the save should make."""
+       `shuffle_blocks` launches the steps and the save should make.
+    4. The sharded step against the card's step 3 from the same state,
+       and the stepped checkpoint restored 4 -> 1 on the card, bit-equal
+       to the ranks' shards (`_sharded_step_checks`)."""
     import torch.distributed as dist
     from repro_torch.ckpt.checkpoint import (Stacked, checkpoint_path,
                                              flatten_state,
@@ -2233,22 +2564,28 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
     from repro_torch.launch.distributed import RankPool
     from repro_torch.launch.mesh import make_mesh, mesh_summary
     from repro_torch.meshctx import use_mesh
-    from repro_torch.optim.tree import tree_map
+    from repro_torch.optim.tree import tree_leaves, tree_map
     from repro_torch.train.state import (train_state_shapes,
                                          train_state_shardings)
     from repro_torch.train.trainer import Trainer
     cfg, full, tcfg, hp, engine = trainer_setup(trainer["full"])
     src, dst, step = workdir / "ckpt", workdir / "mesh_4rank", 2
+    dst_step = workdir / "mesh_4rank_stepped"
     t = {}
-    # ---- 1 -> 4, on the host
+    # ---- 1 -> 4 and the sharded step, on MESH_DEVICE
     t0 = time.perf_counter()
     with RankPool(MESH_RANKS, workdir / "mesh_store", timeout=600) as pool:
         if pool.run(mesh_rank_up) != list(range(MESH_RANKS)):
             raise AssertionError("the ranks came up out of order")
         t["ranks_up_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ranks = pool.run(mesh_rank_job, str(src), step, str(dst), full)
+        ranks = pool.run(mesh_rank_job, str(src), step, str(dst), full,
+                         str(dst_step), MESH_DEVICE)
         t["job_s"] = time.perf_counter() - t0
+    digests = [r.pop("digests") for r in ranks]
+    restored = [r.pop("restored_digests") for r in ranks]
+    by_rank = _by_rank_checkpoint(checkpoint_path(dst_step, step + 1),
+                                  step + 1, ranks)
     with BpReader(checkpoint_path(dst, step)) as r:
         chunks = {v: [c.rank for c in r.iter_chunks(step, v)]
                   for v in r.var_names(step)}
@@ -2275,6 +2612,9 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
                                               device=dev),
                         train_state_shapes(cfg))
         whole, _ = restore_checkpoint(src, like, step=step)
+        # the ranks' 1 -> 4 shards against the same full restore
+        shards_checked = _check_digests(torch, whole, restored,
+                                        "1 -> 4 restore on the ranks")
         got, want = flatten_state(state), flatten_state(whole)
         for name, leaf in want.items():
             ws = leaf.parts if isinstance(leaf, Stacked) else [leaf]
@@ -2286,11 +2626,14 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
                 raise AssertionError(f"4 -> 1 restore: {name} differs from "
                                      f"the full restore")
         del whole, want, got, like
+        # the step-2 state again, plain, for the sharded step's noise floor
+        at_state = tree_map(lambda x: x.to_local().clone(), state)
         # ---- resume: the uninterrupted run's remaining steps
         resumer = Trainer(cfg, tcfg, hp, workdir / "mesh_resume",
                           engine_config=engine, device=dev,
                           device_compress=True)
         losses, step_s = [], []
+        card_step = None
         fops.flash_attention.launches = 0
         bops.shuffle_blocks.launches = 0
         prev = torch.are_deterministic_algorithms_enabled()
@@ -2304,6 +2647,9 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
                     state, m = resumer.step_fn(state, batch)
                     losses.append(float(m["loss"]))
                     step_s.append(time.perf_counter() - t0)
+                    if card_step is None:     # the card's step from `at`
+                        card_step = [x.to_local().clone() for x in
+                                     tree_leaves(state["params"])]
                 flash = fops.flash_attention.launches
                 t0 = time.perf_counter()
                 resumer.manager.save(state, tcfg.steps, force=True)
@@ -2324,6 +2670,10 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
             if not all(torch.equal(x.to_local(), y) for x, y in zip(xs, ys)):
                 raise AssertionError(f"resumed state {name} differs from the "
                                      f"uninterrupted run's")
+        sharded = _sharded_step_checks(torch, dev, cfg, tcfg, hp, mesh,
+                                       at_state, card_step, losses[0],
+                                       ranks, digests, dst_step, at + 1)
+        del at_state, card_step
         want_flash = (tcfg.steps - at) * train_launches(cfg)["flash_attention"]
         want_shuffles = _shuffled_chunks(state)
         if flash != want_flash or shuffles != want_shuffles:
@@ -2335,24 +2685,29 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
         dist.destroy_process_group()
     res = {"arch": cfg.name, "n_layers": cfg.n_layers, "step": at,
            "mesh_4rank": {"shape": list(MESH_SHAPE), "axes": list(MESH_AXES),
-                          "backend": "gloo", "device": "cpu"},
+                          "backend": "gloo", "device": MESH_DEVICE},
            "mesh_card": summary, "ranks": ranks,
            "chunks_4rank": n_chunks, "stored_bytes_4rank": stored,
            "stored_bytes_source": src_stored, "losses": losses,
            "step_s": step_s,
            "uninterrupted_step_s": trainer["step_wall_s"][at - 1:],
            "flash_launches": flash, "shuffle_launches": shuffles,
-           "bit_exact": True, "t": t, "card": smi}
+           "bit_exact": True, "t": t, "card": smi,
+           "mesh_device": MESH_DEVICE, "sharded_step": sharded,
+           "by_rank": by_rank, "shards_checked": shards_checked}
     print(json.dumps({"mesh": res}))
     return res
 
 
 def print_mesh(res: dict):
     t, card = res["t"], res["card"]
+    where = ("on the card (gloo, CUDA tensors: one card cannot hold 4 nccl "
+             "ranks)" if res["mesh_device"] == "cuda" else
+             "on the host (gloo, CPU tensors)")
     print(f"mesh phase ({res['arch']}, {res['n_layers']} layers; {card}): "
-          f"1 -> 4 on a {tuple(res['mesh_4rank']['shape'])} gloo mesh on "
-          f"the host (CPU by design: one card cannot hold 4 nccl ranks), "
-          f"ranks up {t['ranks_up_s']:.2f} s, job {t['job_s']:.2f} s; "
+          f"1 -> 4 on a {tuple(res['mesh_4rank']['shape'])} gloo mesh "
+          f"{where}, ranks up {t['ranks_up_s']:.2f} s, job "
+          f"{t['job_s']:.2f} s; "
           f"4-rank checkpoint {res['chunks_4rank']} chunks, "
           f"{res['stored_bytes_4rank']} bytes stored (source "
           f"{res['stored_bytes_source']}); 4 -> 1 restore_latest on the "
@@ -2363,11 +2718,26 @@ def print_mesh(res: dict):
           f"{res['flash_launches']}, shuffle_blocks "
           f"{res['shuffle_launches']}")
     for r in res["ranks"]:
-        print(f"  rank {r['rank']} at {r['coordinate']}: read "
-              f"{r['read_bytes']:.0f} bytes for {r['box_bytes']} box bytes; "
-              f"restore {r['restore_s']:.2f} s, full restore "
-              f"{r['full_restore_s']:.2f} s, sharded save {r['save_s']:.2f}"
-              f" s; {r['shards_checked']} shards bit-equal ({card})")
+        print(f"  rank {r['rank']} at {r['coordinate']} ({r['device']}): "
+              f"read {r['read_bytes']:.0f} bytes for {r['box_bytes']} box "
+              f"bytes; restore {r['restore_s']:.2f} s, save one writer a "
+              f"rank {r['save_s']:.2f} s; the (2, 2) step "
+              f"{r['step_s']:.2f} s (loss "
+              f"{r['loss']}); the stepped state's save "
+              f"{r['save_by_rank_s']:.2f} s (encode "
+              f"{r['by_rank_encode_s']:.2f}, write "
+              f"{r['by_rank_write_s']:.2f}), "
+              f"{r['by_rank_bytes_written']} bytes written ({card})")
+    sh, br = res["sharded_step"], res["by_rank"]
+    print(f"  the sharded step against the card's step from the same "
+          f"state: loss {sh['ranks_loss'][0]} vs {sh['card_loss']} (plain "
+          f"floor {sh['floor_loss']}); gaps {sh['gaps']}; the stepped "
+          f"checkpoint 4 -> 1 on the card {sh['restore_4_to_1_s']:.2f} s, "
+          f"{sh['boxes_bit_equal']} boxes bit-equal to the ranks' shards")
+    print(f"  {res['shards_checked']} shards of the 4 ranks bit-equal to "
+          f"a full restore on the card; bytes to rank 0 "
+          f"{br['bytes_to_rank0']} (the chunk tables); bytes a subfile "
+          f"{br['subfile_bytes']} ({card})")
 
 
 def manager_stats(m) -> dict:
@@ -2465,6 +2835,11 @@ def main() -> int:
           f"{train['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    # the train step on a (1, 1) cuda mesh with DTensors, against the
+    # plain-tensor step (early too: it is profiled)
+    dtensor = run_dtensor_steps(torch, dev, smi)
+    torch.cuda.empty_cache()
+
     counters = {"deposit_cic": dops.deposit,
                 "byte_shuffle_blocks": bops.shuffle_blocks,
                 "byte_shuffle_block": bops.shuffle_block,
@@ -2511,12 +2886,15 @@ def main() -> int:
     print(f"launches on the main path: {launches}")
     print_original_io(res["original_io"])
     m = par["manager"]
-    print(f"parallel I/O ({par['writers']} writers, {par['transport']}): "
-          f"plane spawn {par['t']['plane_spawn_s']:.3f} s; dump "
-          f"{t['parallel_dump_s']:.3f} s (serial {t['dump_s']:.3f}), "
+    print(f"parallel I/O ({par['writers']} writers, {par['transport']}; "
+          f"{par['capacity']} slots a species, 1/{par['cut']} of the main "
+          f"path's): plane spawn {par['t']['plane_spawn_s']:.3f} s; dump "
+          f"{t['parallel_dump_s']:.3f} s (serial at the cut "
+          f"{t['parallel_serial_dump_s']:.3f}; serial unreduced "
+          f"{t['dump_s']:.3f}), "
           f"{len(par['dump_identical_files'])} files byte-identical, "
           f"{par['dump_vars_read_back']} variables read back; manager "
-          f"checkpoint write {m['write_s']:.3f} s (serial "
+          f"checkpoint write {m['write_s']:.3f} s (serial unreduced "
           f"{t['checkpoint_s']:.3f}), blocked {m['blocked_s']:.3f} s, "
           f"overlap {m['overlap_fraction']:.3f}, save returned in "
           f"{par['t']['save_return_s']:.3f} s, chunk behind it "
@@ -2619,10 +2997,15 @@ def main() -> int:
     # step's first step (the kernels' rows); the lse instance runs only on
     # the train path
     train_launch = train["launches_per_step"][0]
+    # the DTensor steps' launches through local_map, two steps a path
+    dtensor_launch = {k: sum(2 * r["dtensor"]["launches"][k]
+                             for r in dtensor)
+                      for k in ("flash_attention", "ssd_scan")}
     path_launches = {k: serve_launches[k] + train_launch[k]
-                     for k in serve_launches}
+                     + dtensor_launch[k] for k in serve_launches}
     print(json.dumps({"kernel_launches_by_path": {
         "serve": serve_launches, "train_step": train_launch,
+        "dtensor_steps": dtensor_launch,
         "trainer_uninterrupted_flash":
             trainer["flash_launches_uninterrupted"]}}))
     on_path = {"deposit_cic": launches, "byte_shuffle_blocks": launches,

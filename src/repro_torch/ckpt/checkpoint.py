@@ -24,9 +24,12 @@ A DTensor leaf on a mesh of more than one device is saved collectively,
 as the JAX package saves a sharded leaf: one chunk a rank's local shard,
 at its box offset and at `rank=` its global rank (row-major over the
 mesh, like a JAX device id), replicas included; every rank calls
-`save_checkpoint`, rank 0 gathers the shards' bytes and writes the
-series, and every rank returns the same path. With `device_compress`
-each rank first byte-shuffles its shard on its device. A DTensor on a
+`save_checkpoint` and every rank returns the same path. With
+`parallel_io=W` the ranks are the write plane's writers: each writes its
+own compressed chunks into its writer's subfile and rank 0 commits the
+step from the chunk tables (`_save_by_rank`); otherwise rank 0 gathers
+the shards' bytes and writes the series. With `device_compress` each rank
+first byte-shuffles its shard on its device. A DTensor on a
 one-device mesh is saved as its local tensor. `restore_sharded` is the
 elastic restore: each rank reads only the box of each leaf that its
 shard of the new layout needs, and builds DTensors.
@@ -34,9 +37,13 @@ shard of the new layout needs, and builds DTensors.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import pathlib
+import pickle
 import shutil
+import time
+import traceback
 from typing import Any, Optional
 
 import numpy as np
@@ -227,8 +234,13 @@ def save_checkpoint(directory, state, step: int, *, n_io_ranks: int = 8,
     Such a leaf is one chunk at rank 0, so it lands on writer 0.
 
     DTensor leaves on a mesh of more than one device make the save
-    collective: every rank calls it, each writes its own shards' chunks
-    through rank 0, which alone opens the writer."""
+    collective: every rank calls it. With `parallel_io=W` (or a
+    `writer_plane`, whose size gives W) each rank is the writer of its own
+    chunks (`_save_by_rank`: no shard bytes go to rank 0, and the plane's
+    processes are not used); otherwise each rank's chunks go through rank
+    0, which alone opens the writer (`_save_sharded`).
+
+    `SAVE_STATS` holds this process's numbers of its last sharded save."""
     directory = pathlib.Path(str(directory))
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}.bp4"
@@ -239,6 +251,10 @@ def save_checkpoint(directory, state, step: int, *, n_io_ranks: int = 8,
                                                or engine_config.device_compress))
     use_dev = cfg.device_compress and C.codec_wants_device(cfg.codec)
     if any(_sharded(v) for v in flat.values()):
+        if parallel_io or writer_plane is not None:
+            n_writers = parallel_io or writer_plane.m
+            return _save_by_rank(directory, final, tmp, flat, step, cfg,
+                                 use_dev, n_io_ranks, extra_attrs, n_writers)
         return _save_sharded(directory, final, tmp, flat, step, cfg, use_dev,
                              n_io_ranks, extra_attrs, async_io, parallel_io,
                              writer_plane, transport)
@@ -432,6 +448,8 @@ def _save_sharded(directory, final, tmp, flat, step, cfg, use_dev,
     import torch.distributed as dist
     from repro_torch.core.darshan import CTR, MONITOR
     rank, world = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    received = 0
     w = None
     if rank == 0:
         if tmp.exists():
@@ -455,6 +473,7 @@ def _save_sharded(directory, final, tmp, flat, step, cfg, use_dev,
             dist.gather_object([] if rank == 0 else mine, got, dst=0)
             if w is None:
                 continue
+            received += sum(c[3].nbytes for g in got[1:] for c in g)
             got[0] = mine
             for chunks in got:
                 for gshape, off, r, chunk in chunks:
@@ -474,7 +493,222 @@ def _save_sharded(directory, final, tmp, flat, step, cfg, use_dev,
         w.close()
         _publish(directory, final, tmp, step)
     dist.barrier()
+    SAVE_STATS.clear()
+    SAVE_STATS.update(path="gather", rank=rank, bytes_to_rank0=received,
+                      seconds=time.perf_counter() - t0)
     return final
+
+
+#: this process's numbers of its last sharded save: "path" ("gather" or
+#: "by_rank"), "rank", "bytes_to_rank0" (at rank 0: through rank 0, the
+#: chunk bytes the other ranks sent it; one writer a rank, the pickled
+#: sizes and chunk tables), "seconds"; by rank also "bytes_written" (this
+#: rank's payload bytes), "writer" and the phases' seconds
+SAVE_STATS: dict = {}
+
+
+def _save_by_rank(directory, final, tmp, flat, step, cfg, use_dev,
+                  n_io_ranks, extra_attrs, n_writers) -> pathlib.Path:
+    """The collective save of sharded leaves with one writer a rank, the
+    write plane's protocol with the ranks as its writers. Writer w of
+    M = min(W, world) owns the ranks `writer_rank_range(w, world, M)` and
+    the subfile `data.<w>`; rank r is the chunk rank r, as a JAX device id
+    is (so `n_io_ranks` must be the world size).
+
+    1. Each rank makes and compresses its own chunks (its shards, byte-
+       shuffled on its device with `device_compress`; of a leaf off any
+       mesh, the same on every rank, the row chunks of its own rank).
+    2. The ranks exchange the sizes of their chunks, nothing else, and
+       each works out where its chunks go in its writer's subfile: the
+       order of the plane's writer process, variable by variable in the
+       state's order and rank by rank within one (an exclusive scan).
+    3. Each rank writes its payloads there and fsyncs; the first rank of
+       each writer seals the writer's shard record `md.<w>.shard` (the
+       prepared vote) from the chunk tables of its ranks.
+    4. Rank 0 reads every shard record back, crc-checked, and commits the
+       step: `md.0` and the crc-sealed `md.idx` record, then publishes.
+    A failure anywhere before the commit leaves no `md.idx` record and no
+    published step, as a torn step of the plane. Every phase ends in an
+    exchange that carries each rank's error, so the ranks raise
+    together. The files are the JAX package's
+    `save_checkpoint(parallel_io=W, n_io_ranks=world)` of the same
+    sharded state, byte for byte (`md.idx` aside from its time field)."""
+    import torch.distributed as dist
+    from repro_torch.core.aggregation import aggregator_of
+    from repro_torch.core.bp_engine import (ChunkMeta, build_md_record,
+                                            encode_chunk,
+                                            record_compress_counters,
+                                            seal_md_record)
+    from repro_torch.core.darshan import open_file
+    from repro_torch.core.parallel_engine import (read_shard_record,
+                                                  seal_shard_record,
+                                                  shard_path)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if n_io_ranks != world:
+        raise ValueError(f"a sharded save with one writer a rank writes "
+                         f"chunk rank r from rank r: n_io_ranks must be the "
+                         f"world size {world}, got {n_io_ranks}")
+    if cfg.stripe is not None:
+        raise ValueError("a sharded save with one writer a rank writes "
+                         "plain subfiles (no striping)")
+    m = min(max(1, int(n_writers)), world)
+    mine_w = aggregator_of(rank, world, m)
+    group = [r for r in range(world) if aggregator_of(r, world, m) == mine_w]
+    t0 = time.perf_counter()
+    names = list(flat)
+    received = 0
+
+    def exchange(ok_val, err):
+        """all ranks' (value, error); raise if any rank failed."""
+        got = [None] * world
+        dist.all_gather_object(got, (ok_val, err))
+        bad = [(r, e) for r, (_, e) in enumerate(got) if e is not None]
+        if bad:
+            raise RuntimeError("sharded save failed on rank(s) "
+                               + ", ".join(f"{r}:\n{e}" for r, e in bad))
+        return [v for v, _ in got]
+
+    # ---- rank 0 lays out the series; 1. each rank encodes its chunks
+    items, err = [], None
+    try:
+        if rank == 0:
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir(parents=True)
+            for w in range(m):
+                open_file(tmp / f"data.{w}", "wb", rank=w).close()
+                open_file(shard_path(tmp, w), "wb", rank=w).close()
+        for i, name in enumerate(names):
+            leaf = flat[name]
+            if _sharded(leaf):
+                chunks = _rank_chunks(leaf, use_dev, cfg.compression_block,
+                                      rank)
+            else:
+                chunks = [c for c in _chunks(_on_one_device(leaf), use_dev,
+                                             n_io_ranks) if c[2] == rank]
+            for gshape, off, r, chunk in chunks:
+                chunk = _writable(chunk, cfg, tmp)
+                raw = chunk.nbytes
+                payload, shape, stats, _ = encode_chunk(
+                    chunk, cfg.codec, cfg.compression_block)
+                record_compress_counters(rank, f"data.{mine_w}", cfg.codec,
+                                         raw, len(payload), None)
+                items.append((i, r, tuple(off), tuple(shape), payload,
+                              stats, C.np_dtype(chunk.dtype).str,
+                              tuple(gshape)))
+    except Exception:                             # noqa: BLE001 — shared
+        err = traceback.format_exc()
+    t_encode = time.perf_counter() - t0
+
+    # ---- 2. sizes only: the offsets of each rank's chunks in its subfile
+    sizes = exchange([(it[0], len(it[4])) for it in items], err)
+    base, pos = 0, {}
+    for i in range(len(names)):
+        for r in group:
+            for j, (vi, nb) in enumerate(sizes[r]):
+                if vi == i:
+                    pos[(r, j)] = base
+                    base += nb
+    # ---- 3. write this rank's payloads; the writer's first rank seals
+    t1 = time.perf_counter()
+    metas, err = [], None
+    try:
+        path = tmp / f"data.{mine_w}"
+        with open_file(path, "r+b", rank=rank) as f:
+            for j, it in enumerate(items):
+                f.seek(pos[(rank, j)])
+                f.write(it[4])
+            f.fsync()
+        metas = [(i, ChunkMeta(r, off, shape, mine_w, pos[(rank, j)],
+                               len(payload), *stats).to_json(), dt, gs)
+                 for j, (i, r, off, shape, payload, stats, dt, gs)
+                 in enumerate(items)]
+    except Exception:                             # noqa: BLE001 — shared
+        err = traceback.format_exc()
+    tables = exchange(metas, err)
+    written = sum(len(it[4]) for it in items)
+    t_write = time.perf_counter() - t1
+    sealed, err = None, None
+    try:
+        if rank == group[0]:
+            order = sorted((i, r, j, meta) for r in group
+                           for j, (i, meta, _, _) in enumerate(tables[r]))
+            chunks: dict[str, list] = {}
+            for i, _r, _j, meta in order:
+                chunks.setdefault(f"state/{names[i]}", []).append(meta)
+            with open_file(shard_path(tmp, mine_w), "r+b",
+                           rank=mine_w) as shard:
+                shard.seek(0, 2)
+                sealed = seal_shard_record(shard, step, chunks)
+                shard.fsync()
+    except Exception:                             # noqa: BLE001 — shared
+        err = traceback.format_exc()
+    votes = exchange(sealed, err)
+    # ---- 4. rank 0 validates the votes and commits
+    t2 = time.perf_counter()
+    err = None
+    try:
+        if rank == 0:
+            received = sum(len(pickle.dumps(t)) for t in tables[1:])
+            received += sum(len(pickle.dumps(s)) for s in sizes[1:])
+            merged: dict[str, list] = {f"state/{n}": [] for n in names}
+            for w in range(m):
+                first = next(r for r in range(world)
+                             if aggregator_of(r, world, m) == w)
+                if votes[first] is None:
+                    continue
+                rec = read_shard_record(tmp, w, votes[first], step)
+                for name, lst in rec["chunks"].items():
+                    merged[name].extend(lst)
+            pending = {}
+            for r in range(world):
+                for i, _meta, dt, gs in tables[r]:
+                    pending.setdefault(f"state/{names[i]}",
+                                       {"dtype": dt, "shape": gs})
+            pending = {f"state/{n}": pending[f"state/{n}"] for n in names}
+            attrs = {"checkpoint/step": step,
+                     "checkpoint/n_leaves": len(flat), **(extra_attrs or {})}
+            blob = json.dumps(build_md_record(step, attrs, pending,
+                                              merged)).encode()
+            with open_file(tmp / "md.0", "wb", rank=0) as md, \
+                    open_file(tmp / "md.idx", "wb", rank=0) as idx:
+                seal_md_record(md, idx, 0, step, blob, fsync_step=True)
+            if cfg.profiling:
+                doc = {"engine": "JBP(BP4-parallel)", "aggregators": m,
+                       "writers": m, "codec": cfg.codec,
+                       "transport": "rank",
+                       "steps": [{"step": step, "encode_s": t_encode,
+                                  "write_s": t_write,
+                                  "commit_s": time.perf_counter() - t2}]}
+                with open_file(tmp / "profiling.json", "w", rank=0) as f:
+                    f.write(json.dumps(doc, indent=1))
+            _publish(directory, final, tmp, step)
+    except Exception:                             # noqa: BLE001 — shared
+        err = traceback.format_exc()
+    exchange(None, err)
+    SAVE_STATS.clear()
+    SAVE_STATS.update(path="by_rank", rank=rank, writer=mine_w,
+                      bytes_written=written, bytes_to_rank0=received,
+                      encode_s=t_encode, write_s=t_write,
+                      seconds=time.perf_counter() - t0)
+    return final
+
+
+def _writable(chunk, cfg, path):
+    """A chunk in the form a writer process takes it: a tensor of a leaf
+    off any mesh byte-shuffled on its device (`device_compress`) or
+    copied to host, as the plane's coordinator hands it over."""
+    from repro_torch.core.darshan import CTR, MONITOR
+    if isinstance(chunk, C.PreshuffledChunk):
+        MONITOR.record(0, str(path), CTR.COMPRESS_DEVICE_BYTES,
+                       inc=float(chunk.device_bytes))
+        return chunk
+    if not C.is_device_array(chunk):
+        return np.ascontiguousarray(chunk)
+    if cfg.device_compress and C.codec_wants_device(cfg.codec):
+        return _writable(C.device_precondition(
+            chunk, block=cfg.compression_block), cfg, path)
+    return chunk.cpu().numpy()
 
 
 def list_checkpoints(directory) -> list[int]:

@@ -156,6 +156,40 @@ def iter_shard_records(path, w: int):
         off += SHARD_HDR.size + ln
 
 
+def read_shard_record(path, wid: int, info: dict, step: int) -> dict:
+    """Phase-1 validation: read writer `wid`'s sealed shard record of
+    `step` back from disk (at `info["shard_off"]`, `info["shard_len"]`
+    bytes) and crc-check it — the coordinator commits only what is durably
+    prepared. A torn/corrupt shard aborts the step like a torn step."""
+    with open_file(shard_path(path, wid), "rb", rank=0) as f:
+        f.seek(info["shard_off"])
+        raw = f.read(info["shard_len"])
+    if len(raw) < SHARD_HDR.size:
+        raise RuntimeError(f"torn shard record from writer {wid} "
+                           f"(step {step} not committed)")
+    rstep, ln, crc = SHARD_HDR.unpack_from(raw, 0)
+    blob = raw[SHARD_HDR.size:SHARD_HDR.size + ln]
+    if (rstep != step or len(blob) != ln
+            or (zlib.crc32(blob) & 0xFFFFFFFF) != crc):
+        raise RuntimeError(f"torn shard record from writer {wid} "
+                           f"(step {step} not committed)")
+    return json.loads(blob)
+
+
+def seal_shard_record(shard, step: int, chunks: dict) -> dict:
+    """Append writer's prepared vote for `step` to its open shard file:
+    the crc-sealed record of its chunk table (`chunks`: name -> chunk
+    jsons, in the order the chunks were appended). Returns the record's
+    offset, length and crc (the "prepared" ack's fields)."""
+    blob = json.dumps({"step": step, "chunks": chunks}).encode()
+    crc = zlib.crc32(blob) & 0xFFFFFFFF
+    rec_off = shard.tell()
+    shard.write(SHARD_HDR.pack(step, len(blob), crc))
+    shard.write(blob)
+    return {"shard_off": rec_off, "shard_len": SHARD_HDR.size + len(blob),
+            "crc": crc}
+
+
 # --------------------------------------------------------------------- worker
 def _open_worker_files(path: pathlib.Path, w: int, n_writers: int,
                        cfg: EngineConfig):
@@ -377,18 +411,14 @@ def _worker_main(w: int, path_str, n_writers: int, cfg, task_q, result_q,
                     ChunkMeta(rank, tuple(offset), tuple(shape), w, off, nb,
                               vmin, vmax).to_json())
                 off += nb
-            blob = json.dumps({"step": step, "chunks": chunks}).encode()
-            crc = zlib.crc32(blob) & 0xFFFFFFFF
             # the record offset is re-derived from the file position every
             # step: a previous FAILED step may have left (torn) bytes in
             # the shard, and a stale counter would desync every later
             # commit ("worker stays alive" requires this)
-            rec_off = shard.tell()
             tseal = time.perf_counter()
-            with TRACER.span("seal", path=f"md.{w}.shard", rank=w,
-                             length=len(blob)):
-                shard.write(SHARD_HDR.pack(step, len(blob), crc))
-                shard.write(blob)
+            with TRACER.span("seal", path=f"md.{w}.shard", rank=w) as ssp:
+                sealed = seal_shard_record(shard, step, chunks)
+                ssp.length = sealed["shard_len"] - SHARD_HDR.size
                 if cfg.fsync_policy == "step":
                     subfiles.fsync_one(w)
                     shard.fsync()
@@ -397,10 +427,9 @@ def _worker_main(w: int, path_str, n_writers: int, cfg, task_q, result_q,
                     shard.flush()  # coordinator reads the record back NOW
             if METRICS.enabled:
                 METRICS.observe("seal", time.perf_counter() - tseal,
-                                nbytes=len(blob), key=f"md.{w}.shard")
-            info = {"shard_off": rec_off,
-                    "shard_len": SHARD_HDR.size + len(blob), "crc": crc,
-                    "compress_s": tcomp, "bytes_stored": off - base,
+                                nbytes=sealed["shard_len"] - SHARD_HDR.size,
+                                key=f"md.{w}.shard")
+            info = {**sealed, "compress_s": tcomp, "bytes_stored": off - base,
                     "shm_bytes": shm_bytes, "fallback_bytes": fallback_bytes,
                     "worker_s": time.perf_counter() - t0}
             if parent is not None and TRACER.enabled:
@@ -719,22 +748,7 @@ class ParallelBpWriter:
                             timeout=self.ack_timeout, step=step)
 
     def _read_shard_record(self, wid: int, info: dict, step: int) -> dict:
-        """Phase-1 validation: read the sealed shard record back from disk
-        and crc-check it — the coordinator commits only what is durably
-        prepared. A torn/corrupt shard aborts the step like a torn step."""
-        with open_file(shard_path(self.path, wid), "rb", rank=0) as f:
-            f.seek(info["shard_off"])
-            raw = f.read(info["shard_len"])
-        if len(raw) < SHARD_HDR.size:
-            raise RuntimeError(f"torn shard record from writer {wid} "
-                               f"(step {step} not committed)")
-        rstep, ln, crc = SHARD_HDR.unpack_from(raw, 0)
-        blob = raw[SHARD_HDR.size:SHARD_HDR.size + ln]
-        if (rstep != step or len(blob) != ln
-                or (zlib.crc32(blob) & 0xFFFFFFFF) != crc):
-            raise RuntimeError(f"torn shard record from writer {wid} "
-                               f"(step {step} not committed)")
-        return json.loads(blob)
+        return read_shard_record(self.path, wid, info, step)
 
     # ------------------------------------------------------------------ commit
     def end_step(self, blocking: bool = False) -> dict:

@@ -134,6 +134,17 @@ def stream_of(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
+def refuse_dtensor(name: str, *tensors):
+    """Raise TypeError for a DTensor among `tensors`: a wrapper takes a
+    rank's local tensors only (the model calls it under `local_map`); it
+    neither gathers a DTensor nor runs on its local shard by itself."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name}: got a DTensor; call it on local tensors "
+                        f"(e.g. through torch.distributed.tensor."
+                        f"experimental.local_map)")
+
+
 def require_cuda(name: str, *tensors: torch.Tensor, dtype: torch.dtype):
     """Validate what a kernel takes: CUDA, one device, `dtype`, contiguous."""
     dev = tensors[0].device

@@ -2,7 +2,8 @@
 kernel (`csrc/bitshuffle.cu`), a CPU tensor to the plain version
 (`ref.py`). `shuffle`, `shuffle_block` and `unshuffle` have the API of the
 JAX package's `kernels/bitshuffle/ops.py`; `shuffle_blocks` shuffles a
-whole leaf's codec blocks in one launch, for the write path."""
+whole leaf's codec blocks in one launch, for the write path. Each takes a
+rank's local bytes: a DTensor raises TypeError."""
 from __future__ import annotations
 
 import ctypes
@@ -27,6 +28,7 @@ def _launch(data: torch.Tensor, block: int, itemsize: int,
             inverse: bool) -> torch.Tensor:
     """uint8 [n] on CUDA: each `block` bytes shuffled ([items, itemsize]
     -> [itemsize, items]) or, with `inverse`, unshuffled on its own."""
+    _build.refuse_dtensor("byte shuffle", data)
     _build.require_cuda("byte shuffle", data, dtype=torch.uint8)
     out = torch.empty_like(data)
     lib = _build.load("bitshuffle", _SIGNATURES)
@@ -40,6 +42,7 @@ def _launch(data: torch.Tensor, block: int, itemsize: int,
 
 def shuffle(data: torch.Tensor, *, itemsize: int):
     """uint8 [n] -> (shuffled uint8 [n padded to itemsize*TILE_N], n)."""
+    _build.refuse_dtensor("shuffle", data)
     n = data.shape[0]
     x = F.pad(data, (0, (-n) % (itemsize * TILE_N)))
     if not x.is_cuda:
@@ -53,6 +56,7 @@ def shuffle_block(data: torch.Tensor, *, itemsize: int) -> torch.Tensor:
     """Shuffle exactly one codec block: uint8 [n] -> uint8 [n] with
     n % itemsize == 0 and no padding — bit-identical to the host
     `compression.byte_shuffle` on the same bytes."""
+    _build.refuse_dtensor("shuffle_block", data)
     if data.shape[0] % itemsize:
         raise ValueError(
             f"shuffle_block needs len % itemsize == 0, got "
@@ -72,6 +76,7 @@ def shuffle_blocks(data: torch.Tensor, *, block: int,
     multiple of itemsize is copied unchanged, as the host codec leaves it,
     so the result equals the host `compression.byte_shuffle` applied block
     by block."""
+    _build.refuse_dtensor("shuffle_blocks", data)
     if block <= 0 or itemsize <= 0:
         raise ValueError(f"shuffle_blocks needs block > 0 and itemsize > 0, "
                          f"got {block} and {itemsize}")
@@ -84,6 +89,7 @@ def shuffle_blocks(data: torch.Tensor, *, block: int,
 
 def unshuffle(data: torch.Tensor, n: int, *, itemsize: int) -> torch.Tensor:
     """Inverse of `shuffle`: uint8 [padded] -> the first n bytes."""
+    _build.refuse_dtensor("unshuffle", data)
     if not data.is_cuda:
         return byte_unshuffle_ref(data, itemsize=itemsize)[:n]
     out = _launch(data, data.shape[0], itemsize, True)

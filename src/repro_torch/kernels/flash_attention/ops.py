@@ -46,7 +46,8 @@ def flash_attention(q, k, v, *, causal: bool = True, qc: int = 512,
     """q: [B,Sq,H,D], k/v: [B,Skv,H,D] (H(q) == H(kv); GQA callers expand
     first) -> [B,Sq,H,D] in q's dtype. `qc`/`kc` are the plain version's
     chunks (and the backward's); the kernel tiles by 64. Differentiable
-    when grad is enabled (`FlashAttention`)."""
+    when grad is enabled (`FlashAttention`). A DTensor raises TypeError."""
+    _build.refuse_dtensor("flash_attention", q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, qc, kc)
     if not q.is_cuda:
@@ -58,7 +59,9 @@ def flash_attention(q, k, v, *, causal: bool = True, qc: int = 512,
 def flash_forward(q, k, v, *, causal: bool = True, qc: int = 512,
                   kc: int = 512):
     """(out [B,Sq,H,D], lse [B,H,Sq] fp32): the kernel with its `lse`
-    output on a CUDA tensor, the plain version on a CPU one."""
+    output on a CUDA tensor, the plain version on a CPU one. A DTensor
+    raises TypeError."""
+    _build.refuse_dtensor("flash_forward", q, k, v)
     if not q.is_cuda:
         return flash_fwd_plain(q, k, v, causal=causal, q_chunk=qc,
                                kv_chunk=kc)
@@ -88,6 +91,7 @@ class FlashAttention(torch.autograd.Function):
 
 def _kernel(q, k, v, causal: bool, with_lse: bool = False):
     """One launch of the CUDA kernel: (out, lse or None)."""
+    _build.refuse_dtensor("flash_attention", q, k, v)
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     if k.shape != (B, Skv, H, D) or v.shape != k.shape:

@@ -42,6 +42,7 @@ def _kernel(x, dt, A, B, C, D, chunk, initial_state):
     """Two launches: `ssd_cb_kernel` (C.B^T once per batch and chunk, into
     an fp32 scratch) and `ssd_chunk_scan_kernel`; one call of the
     wrapper."""
+    _build.refuse_dtensor("ssd_scan", x, dt, A, B, C, D, initial_state)
     b, s, h, p = x.shape
     n = B.shape[-1]
     if chunk > MAX_CHUNK or n not in KERNEL_N or p % P_SLICE:
@@ -82,7 +83,9 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = DEFAULT_CHUNK,
              initial_state=None):
     """Same contract as `ref.ssd_chunked`: x:[b,s,h,p], dt:[b,s,h],
     A/D:[h], B/C:[b,s,n] -> (y [b,s,h,p] bf16, final state [b,h,p,n]
-    fp32). On the card x, B and C are bf16 and dt, A, D fp32."""
+    fp32). On the card x, B and C are bf16 and dt, A, D fp32. A DTensor
+    raises TypeError."""
+    _build.refuse_dtensor("ssd_scan", x, dt, A, B, C, D, initial_state)
     s = x.shape[1]
     if s == 0:
         raise ValueError("ssd_scan: empty sequence")

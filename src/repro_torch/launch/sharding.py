@@ -378,6 +378,15 @@ def batch_sharding_for(mesh, sds, *, batch_axes=BATCH):
                                  *([None] * (len(sds.shape) - 1))))
 
 
+def batch_sharding_tree(mesh, batch: dict, *, batch_axes=BATCH) -> dict:
+    """The placements of a step's inputs: each leaf of `batch` (tokens,
+    labels, embeds, ...) sharded on dim 0 over the batch axes
+    (`batch_sharding_for`, guarded); None stays None."""
+    return {k: None if v is None else
+            batch_sharding_for(mesh, v, batch_axes=batch_axes)
+            for k, v in batch.items()}
+
+
 def cache_pspec_tree(cfg, mesh, cache_spec_tree):
     """Decode-cache specs: batch dim over `data`, heads/head_dim over
     `model` per attn_layout; SSM heads over `model`. The port's cache

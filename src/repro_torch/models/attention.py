@@ -5,8 +5,15 @@ Training and prefill go through `kernels/flash_attention/ops.py`: the
 hand-written CUDA kernel on the card, on the CPU the plain version, which
 is the JAX package's chunked oracle `_flash_fwd_impl` (re-exported here as
 `flash_attention_plain`); with grad enabled the wrapper's autograd Function
-adds the backward of `_flash_bwd_impl`. One card means no `model` axis, so the JAX
-code's shard hints are dropped and the padded head count equals H.
+adds the backward of `_flash_bwd_impl`.
+
+On DTensors the reference's shard hints hold: q, k and v are pinned to
+the batch axes and the heads or head_dim layout of `_attn_axes`, and the
+flash core runs under `local_map` on each rank's batch and heads, laid out
+(BATCH, None, "model", None). With a `model` axis the q-heads are padded
+with zeros to a multiple of its size and k and v expanded through
+`kv_map`, as the reference pads them; without one the padded head count
+equals H and k and v are expanded as on one device.
 """
 from __future__ import annotations
 
@@ -17,8 +24,26 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     NEG_INF, flash_attention_plain, reference_attention)
+from repro_torch.meshctx import (BATCH, axis_size, is_dtensor, local_map,
+                                shard_hint)
 from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope,
                                        init_rmsnorm, normal, rms_norm)
+
+
+def _attn_axes(cfg):
+    """((q_heads, q_hd), (kv_heads, kv_hd)) hint axes: the layout of
+    `launch.sharding.attn_layouts` against the active mesh."""
+    tp = axis_size("model")
+    if tp <= 1 or not cfg.n_heads:
+        return (None, None), (None, None)
+    hd_ok = cfg.resolved_head_dim % tp == 0
+    if cfg.n_heads % tp == 0:
+        q = ("model", None)
+        kv = ("model", None) if cfg.n_kv_heads % tp == 0 else (None, None)
+        return q, kv
+    if hd_ok:
+        return (None, "model"), (None, "model")
+    return (None, None), (None, None)
 
 
 def _head_proj_init(gen, d_model, n_heads, head_dim, bias, *, device, dtype):
@@ -50,8 +75,21 @@ def init_attention(gen, cfg, *, device, dtype=torch.float32):
     return p
 
 
-def _head_proj(p, x):
-    """x [B,S,d] -> [B,S,H,hd], bf16."""
+def _head_proj(p, x, heads=None):
+    """x [B,S,d] -> [B,S,H,hd], bf16. On DTensors the product is local to
+    each rank's batch rows and its heads (over `heads`, the weight's H
+    layout), with the weight's `d_model` and head_dim gathered whole:
+    qk-norm and RoPE read whole head_dims."""
+    if is_dtensor(x) or is_dtensor(p["w"]):
+        args = (x, p["w"], p["b"]) if "b" in p else (x, p["w"])
+        specs = ((BATCH, None, None), (None, heads, None),
+                 (heads, None))[:len(args)]
+        w = p["w"]
+        return local_map(
+            lambda x_, w_, *b_: _head_proj({"w": w_, **(
+                {"b": b_[0]} if b_ else {})}, x_),
+            args, specs, ((BATCH, None, heads, None),),
+            ((x.shape[0], x.shape[1], w.shape[1], w.shape[2]),))
     w = p["w"].to(COMPUTE_DTYPE)
     d, H, hd = w.shape
     y = torch.matmul(x.to(COMPUTE_DTYPE), w.reshape(d, H * hd))
@@ -61,15 +99,24 @@ def _head_proj(p, x):
     return y
 
 
-def _out_proj(p, o):
-    """o: [B,S,H,hd] -> [B,S,d], bf16 out."""
+def _out_proj(p, o, axes=(None, None)):
+    """o: [B,S,H,hd] -> [B,S,d], bf16 out. On DTensors the product is local
+    to each rank's batch rows and its slice of the heads or head_dim
+    (`axes`), a partial sum over `model` where that is split."""
+    if is_dtensor(o) or is_dtensor(p["w"]):
+        h, k = axes
+        return local_map(
+            lambda o_, w_: _out_proj({"w": w_}, o_), (o, p["w"]),
+            ((BATCH, None, h, k), (h, k, None)), ((BATCH, None, None),),
+            ((o.shape[0], o.shape[1], p["w"].shape[2]),),
+            partial=("model",) if "model" in axes else ())
     w = p["w"].to(COMPUTE_DTYPE)
     H, hd, d = w.shape
     return torch.matmul(o.reshape(*o.shape[:-2], H * hd), w.reshape(H * hd, d))
 
 
 def _project_q(p, x, cfg):
-    q = _head_proj(p["wq"], x)
+    q = _head_proj(p["wq"], x, _attn_axes(cfg)[0][0])
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
     return q
@@ -79,13 +126,19 @@ def _project_qkv(p, x, kv_x, cfg, positions, kv_positions, *, rope=True):
     """q from x, k and v from kv_x (x itself for self-attention), with
     qk-norm, and RoPE unless `rope=False` (cross-attention)."""
     q = _project_q(p, x, cfg)
-    k = _head_proj(p["wk"], kv_x)
-    v = _head_proj(p["wv"], kv_x)
+    kv_axes = _attn_axes(cfg)[1]
+    k = _head_proj(p["wk"], kv_x, kv_axes[0])
+    v = _head_proj(p["wv"], kv_x, kv_axes[0])
     if cfg.qk_norm:
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
+    # pin the batch and head layout, as the reference does
+    (qh, qd), (kh, kd) = _attn_axes(cfg)
+    q = shard_hint(q, BATCH, None, qh, qd, site="attn.q")
+    k = shard_hint(k, BATCH, None, kh, kd, site="attn.k")
+    v = shard_hint(v, BATCH, None, kh, kd, site="attn.v")
     return q, k, v
 
 
@@ -107,6 +160,19 @@ def _expand_kv(t, cfg):
     return t.index_select(2, kv_map)
 
 
+def _take_heads(t, H: int, Hkv: int, Hp: int):
+    """[B,S,Hkv,D] -> [B,S,Hp,D], head h reading kv head
+    kv_map[h] = min(h // (H // Hkv), Hkv - 1) (the reference's `take`).
+    kv_map does not decrease, so this is each kv head broadcast over its
+    run of query heads, concatenated: views and one copy, whose backward
+    (sums and slices) keeps a DTensor's layout."""
+    G = H // Hkv
+    runs = [min(h // G, Hkv - 1) for h in range(Hp)]
+    B, S, _, D = t.shape
+    return torch.cat([t[:, :, j:j + 1].expand(B, S, runs.count(j), D)
+                      for j in range(Hkv) if runs.count(j)], dim=2)
+
+
 def attention_block(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
                     causal=True, rope=True, q_chunk=1024, kv_chunk=1024):
     """Full-sequence attention (prefill): causal self-attention, or, with
@@ -114,17 +180,42 @@ def attention_block(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
     cross-attention. Returns (y, (k, v)).
 
     KV heads are expanded to the query heads before the flash core (the
-    GQA expansion of the JAX package); the returned cache k/v stay in their
-    compact [B,Skv,Hkv,hd] form. `q_chunk`/`kv_chunk` are the plain
-    version's chunks (the CPU path); the kernel tiles by itself."""
+    GQA expansion of the JAX package), and with a `model` axis of tp > 1
+    the q-heads are zero-padded to Hp = ceil(H / tp) * tp and k and v
+    expanded to Hp through kv_map = min(h // G, Hkv - 1), so the flash
+    core shards over `model` whatever the GQA ratio; the padded heads'
+    outputs are dropped. The returned cache k/v stay in their compact
+    [B,Skv,Hkv,hd] form. `q_chunk`/`kv_chunk` are the plain version's
+    chunks (the CPU path); the kernel tiles by itself."""
     kv_x = x if kv_x is None else kv_x
     kv_positions = positions if kv_positions is None else kv_positions
     q, k, v = _project_qkv(p, x, kv_x, cfg, positions, kv_positions,
                            rope=rope)
-    k_exp, v_exp = _expand_kv(k, cfg), _expand_kv(v, cfg)
-    o = flash_ops.flash_attention(q, k_exp, v_exp, causal=causal,
-                                  qc=q_chunk, kc=kv_chunk)
-    y = _out_proj(p["wo"], o)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    tp = axis_size("model")
+    Hp = -(-H // tp) * tp
+    if tp > 1:
+        B, Sq = q.shape[0], q.shape[1]
+        qp = q
+        if Hp != H:
+            qp = torch.cat([q, torch.zeros((B, Sq, Hp - H, hd),
+                                           dtype=q.dtype, device=q.device)],
+                           dim=2)
+        k_exp, v_exp = _take_heads(k, H, Hkv, Hp), _take_heads(v, H, Hkv, Hp)
+    else:
+        qp, k_exp, v_exp = q, _expand_kv(k, cfg), _expand_kv(v, cfg)
+    spec = (BATCH, None, "model", None)
+    qp = shard_hint(qp, *spec, site="attn.flash_in.q")
+    k_exp = shard_hint(k_exp, *spec, site="attn.flash_in.k")
+    v_exp = shard_hint(v_exp, *spec, site="attn.flash_in.v")
+    o = local_map(
+        lambda q_, k_, v_: flash_ops.flash_attention(
+            q_, k_, v_, causal=causal, qc=q_chunk, kc=kv_chunk),
+        (qp, k_exp, v_exp), (spec,) * 3, (spec,), (tuple(qp.shape),),
+        site="attn.flash")
+    if Hp != H:
+        o = o[:, :, :H]
+    y = _out_proj(p["wo"], o, _attn_axes(cfg)[0])
     return y, (k, v)
 
 

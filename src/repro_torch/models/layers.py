@@ -17,6 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.meshctx import BATCH, is_dtensor, local_map
+
 COMPUTE_DTYPE = torch.bfloat16
 
 
@@ -107,7 +109,47 @@ def init_embedding(gen, vocab, d_model, *, device, dtype=torch.float32):
 
 
 def embed(p, ids):
-    return p["table"].to(COMPUTE_DTYPE)[ids]
+    """Rows `ids` of the bf16 table. A DTensor table is gathered in its
+    sharded layout (`_sharded_embed`)."""
+    table = p["table"].to(COMPUTE_DTYPE)
+    if not is_dtensor(table):
+        return table[ids]
+    return _sharded_embed(table, ids)
+
+
+def _sharded_embed(table, ids):
+    """The vocab-parallel lookup of a DTensor table [V, d], under
+    `meshctx.local_map`: each rank keeps its rows of the vocab (over
+    `model`; `d` gathered whole, as a ZeRO-3 gather of the weight) and
+    looks up the ids of its batch shard that fall in them, zeros for the
+    others; the sum over `model` (one rank holds each row) is the gathered
+    row. The rows are summed in fp32, the exact widening of the bf16
+    values."""
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    if not is_dtensor(ids):
+        ids = _replicated(ids, mesh)
+    tp = mesh.size(names.index("model")) if "model" in names else 1
+    by_vocab = tp > 1 and table.shape[0] % tp == 0
+    rows = table.shape[0] // tp if by_vocab else table.shape[0]
+    lo = mesh.get_local_rank(names.index("model")) * rows if by_vocab else 0
+
+    def lookup(t, i):
+        loc = i - lo
+        ok = (loc >= 0) & (loc < rows)
+        return (t[torch.where(ok, loc, 0)] * ok[..., None].to(t.dtype)).float()
+
+    out = local_map(lookup, (table, ids), (("model", None), (BATCH, None)),
+                    ((BATCH, None, None),),
+                    ((*ids.shape, table.shape[1]),),
+                    partial=("model",) if by_vocab else ())
+    return out.to(COMPUTE_DTYPE)
+
+
+def _replicated(t, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 def unembed(p, x):

@@ -6,6 +6,12 @@ port of the JAX package's `models/model.py`:
     decode_step(params, cfg, token, cache, length)  -> (logits, cache)
     loss_fn(params, cfg, batch, ...)                -> (loss, metrics)
     make_decode_cache_spec / init_decode_cache
+
+Params and a batch of DTensors run the same code over their mesh: the
+forward enters `meshctx.dtensor_scope` (the active mesh, or that of the
+embedding table),
+pins the stream to the batch axes after the embedding as the reference
+does, and the layers' hints and `local_map` calls do the rest.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import math
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.meshctx import BATCH, dtensor_scope, mesh_of, shard_hint
 from repro_torch.models.layers import (COMPUTE_DTYPE, embed, init_embedding,
                                        init_rmsnorm, rms_norm, unembed)
 from repro_torch.models.transformer import stack_for
@@ -88,6 +95,7 @@ def _embed_inputs(params, cfg, batch):
         x = batch["embeds"].to(COMPUTE_DTYPE)
     else:
         x = embed(params["embed"], batch["tokens"])
+    x = shard_hint(x, BATCH, None, None, site="model.embed")
     B, S = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
@@ -105,6 +113,14 @@ def forward(params, cfg, batch, *, remat=False, with_cache=False,
     """batch: {tokens | embeds [B,S,d] (audio), positions?, vision_embeds?
     [B,Tv,d] (vlm)}. Causal full-sequence pass; logits are fp32 [B,S,V].
     `remat` checkpoints the stack's layer bodies (training)."""
+    with dtensor_scope(mesh_of(params["embed"])):
+        return _forward(params, cfg, batch, remat=remat,
+                        with_cache=with_cache, q_chunk=q_chunk,
+                        kv_chunk=kv_chunk, ssd_chunk=ssd_chunk)
+
+
+def _forward(params, cfg, batch, *, remat, with_cache, q_chunk, kv_chunk,
+             ssd_chunk):
     x, positions = _embed_inputs(params, cfg, batch)
     kw = {}
     if cfg.family == "vlm":
@@ -140,6 +156,13 @@ def loss_fn(params, cfg, batch, *, remat=True, aux_weight=0.01,
     `aux_weight` times the stack's aux loss (the moe family's router
     load-balance loss). Returns (loss, metrics) with the loss a 0-d
     tensor."""
+    with dtensor_scope(mesh_of(params["embed"])):
+        return _loss(params, cfg, batch, remat=remat, aux_weight=aux_weight,
+                     q_chunk=q_chunk, kv_chunk=kv_chunk, ssd_chunk=ssd_chunk)
+
+
+def _loss(params, cfg, batch, *, remat, aux_weight, q_chunk, kv_chunk,
+          ssd_chunk):
     logits, aux = forward(params, cfg, batch, remat=remat, q_chunk=q_chunk,
                           kv_chunk=kv_chunk, ssd_chunk=ssd_chunk)
     labels = batch["labels"]

@@ -5,8 +5,14 @@ Dispatch is per group (one group = one sequence): the (token, choice)
 assignments are sorted by expert id within their group, the first
 `capacity` of each expert fill a [B, E, C, d] buffer, and the rest are
 dropped (stable sort: a hot expert drops the latest positions). The expert
-products are batched matrix products over E. One card means no expert
-axis, so the JAX code's shard hints (the dispatch all-to-all) are dropped.
+products are batched matrix products over E.
+
+On DTensors the reference's hints hold: the buffer goes from batch-sharded
+to expert-sharded (the dispatch all-to-all), the experts' hidden layer is
+column-parallel over `data`, and the output is combined back onto the
+batch. The routing, the dispatch's index work (sorts, searches, gathers,
+the scatter into the buffer) and the combine are local along the batch
+and run under `local_map` on each rank's batch shard.
 
 Supports shared experts (deepseek-moe), a dense residual path (arctic) and
 the Switch-style load-balancing aux loss.
@@ -16,8 +22,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.meshctx import BATCH, is_dtensor, local_map, shard_hint
 from repro_torch.models.layers import (COMPUTE_DTYPE, _dense_init,
                                        init_swiglu, swiglu)
+
+FSDP_AX = "data"
 
 
 def init_moe(gen, cfg, *, device, dtype=torch.float32):
@@ -79,15 +88,13 @@ def dispatch(top_e, n_experts: int, capacity: int):
     return order, slot, valid
 
 
-def moe_ffn(p, x, cfg, *, return_aux=True):
-    """x: [B,S,d] -> (y bf16 [B,S,d], aux fp32 scalar). Groups = batch
-    rows."""
+def _dispatch_local(x, router, cfg, C):
+    """Routing and the group-local dispatch of x [B,S,d] (a rank's batch
+    rows): (buf [B,E,C,d] bf16, order, slot [B,S*k], top_w [B,S,k],
+    probs [B,S,E], top_e [B,S,k])."""
     Bb, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    C = _capacity(S, cfg)
-    probs, top_w, top_e = route(p, x, cfg)
-
-    # ---- group-local dispatch -----------------------------------------------
+    probs, top_w, top_e = route({"router": router}, x, cfg)
     order, slot, valid = dispatch(top_e, E, C)
     tok_of_assign = order // k                              # [B,S*k]
     gathered = torch.gather(x.to(COMPUTE_DTYPE), 1,
@@ -100,7 +107,45 @@ def moe_ffn(p, x, cfg, *, return_aux=True):
     rows = torch.arange(Bb, device=x.device)[:, None]
     buf[rows, slot] = gathered
     buf = buf[:, :-1].reshape(Bb, E, C, d)
+    return buf, order, slot, top_w, probs, top_e
+
+
+def _combine_local(out, slot, order, top_w, k: int):
+    """The experts' output rows [B,E,C,d] back to the tokens: each
+    assignment's row (zeros where it was dropped), the fp32 weighted sum
+    over the k choices, then bf16 -> [B,S,d]."""
+    Bb, E, C, d = out.shape
+    out_flat = torch.cat([out.reshape(Bb, E * C, d),
+                          torch.zeros((Bb, 1, d), dtype=COMPUTE_DTYPE,
+                                      device=out.device)], dim=1)
+    y_sorted = torch.gather(out_flat, 1, slot[..., None].expand(-1, -1, d))
+    inv = torch.argsort(order, dim=-1)
+    y_assign = torch.gather(y_sorted, 1, inv[..., None].expand(-1, -1, d))
+    y_assign = y_assign.reshape(Bb, -1, k, d)
+    y = torch.einsum("bskd,bsk->bsd", y_assign.float(), top_w.float())
+    return y.to(COMPUTE_DTYPE)
+
+
+def moe_ffn(p, x, cfg, *, return_aux=True):
+    """x: [B,S,d] -> (y bf16 [B,S,d], aux fp32 scalar). Groups = batch
+    rows."""
+    Bb, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = _capacity(S, cfg)
+
+    # ---- routing and the group-local dispatch, local along the batch ---------
+    row = (BATCH, None)
+    buf, order, slot, top_w, probs, top_e = local_map(
+        lambda x_, r_: _dispatch_local(x_, r_, cfg, C), (x, p["router"]),
+        ((BATCH, None, None), (None, None)),
+        ((BATCH, None, None, None), row, row, (BATCH, None, None),
+         (BATCH, None, None), (BATCH, None, None)),
+        ((Bb, E, C, d), (Bb, S * k), (Bb, S * k), (Bb, S, k), (Bb, S, E),
+         (Bb, S, k)), site="moe.dispatch")
+    # batch-sharded -> expert-sharded: the MoE all-to-all
+    buf = shard_hint(buf, BATCH, "model", None, None, site="moe.buf")
     buf = buf.transpose(0, 1).reshape(E, Bb * C, d)         # [E,B*C,d]
+    buf = shard_hint(buf, "model", None, None, site="moe.buf_experts")
 
     # ---- expert products: fp32 products of the bf16 values (JAX: bf16
     # einsums with preferred_element_type=float32); down is bf16 in and
@@ -110,19 +155,17 @@ def moe_ffn(p, x, cfg, *, return_aux=True):
     g = torch.bmm(bf, ex["gate"].to(COMPUTE_DTYPE).float())
     u = torch.bmm(bf, ex["up"].to(COMPUTE_DTYPE).float())
     h = (F.silu(g) * u).to(COMPUTE_DTYPE)
+    h = shard_hint(h, "model", None, FSDP_AX, site="moe.hidden")
     out = torch.bmm(h, ex["down"].to(COMPUTE_DTYPE))        # [E,B*C,d]
     out = out.reshape(E, Bb, C, d).transpose(0, 1)          # [B,E,C,d]
+    out = shard_hint(out, BATCH, None, None, None, site="moe.combine")
 
     # ---- combine: fp32 weighted sum over the k choices, then bf16 -----------
-    out_flat = torch.cat([out.reshape(Bb, E * C, d),
-                          torch.zeros((Bb, 1, d), dtype=COMPUTE_DTYPE,
-                                      device=x.device)], dim=1)
-    y_sorted = torch.gather(out_flat, 1, slot[..., None].expand(-1, -1, d))
-    inv = torch.argsort(order, dim=-1)
-    y_assign = torch.gather(y_sorted, 1, inv[..., None].expand(-1, -1, d))
-    y_assign = y_assign.reshape(Bb, S, k, d)
-    y = torch.einsum("bskd,bsk->bsd", y_assign.float(), top_w.float())
-    y = y.to(COMPUTE_DTYPE)
+    y = local_map(lambda o_, s_, r_, w_: _combine_local(o_, s_, r_, w_, k),
+                  (out, slot, order, top_w),
+                  ((BATCH, None, None, None), row, row, (BATCH, None, None)),
+                  ((BATCH, None, None),), ((Bb, S, d),), site="moe.y")
+    y = shard_hint(y, BATCH, None, None, site="moe.out")
     if "shared" in p:
         y = y + swiglu(p["shared"], x)
     if "dense" in p:
@@ -131,8 +174,17 @@ def moe_ffn(p, x, cfg, *, return_aux=True):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_aux:
         # Switch-style load-balance loss: E * sum_e f_e * P_e
-        f_e = torch.bincount(top_e.reshape(-1), minlength=E).float() \
-            / (Bb * S * k)
+        f_e = _expert_counts(top_e, E) / (Bb * S * k)
         P_e = probs.mean(dim=(0, 1))
         aux = E * torch.sum(f_e * P_e)
     return y, aux
+
+
+def _expert_counts(top_e, E: int):
+    """The assignments of each expert, fp32 [E]: a `bincount` of a plain
+    tensor; of a DTensor a compare-and-sum, whose sum over the sharded
+    batch DTensor reduces."""
+    if not is_dtensor(top_e):
+        return torch.bincount(top_e.reshape(-1), minlength=E).float()
+    experts = torch.arange(E, device=top_e.device)
+    return (top_e[..., None] == experts).float().sum(dim=(0, 1, 2))

@@ -8,6 +8,13 @@ with `ssd_recurrent_reference`); with grad enabled the wrapper's autograd
 Function differentiates `ssd_chunked`, as the JAX package does. Decode (`mamba2_step`) is one recurrent
 step in plain PyTorch, as in the JAX package. Projections and convs are
 stored split (z / x / B / C / dt), as there.
+
+On DTensors the chunked core runs under `local_map`, on each rank's batch
+and SSM heads: x and dt laid out as the reference's hints on its chunked
+`xc` and `dtc` (batch on the batch axes, heads on `_ssm_head_axis`), the
+initial and final state as its `h0` and carried state, B and C (group
+shared) whole over `model`. The kernel, or on the CPU the plain scan with
+its decays, cumsums and segment sums, so sees local tensors only.
 """
 from __future__ import annotations
 
@@ -18,8 +25,14 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: F401
     ssd_chunked, ssd_recurrent_reference)
+from repro_torch.meshctx import BATCH, axis_size, local_map
 from repro_torch.models.layers import (COMPUTE_DTYPE, init_linear,
                                        init_rmsnorm, linear, normal, rms_norm)
+
+
+def _ssm_head_axis(n_heads: int):
+    tp = axis_size("model")
+    return "model" if (tp > 1 and n_heads % tp == 0) else None
 
 
 # ----------------------------------------------------------------- init
@@ -84,6 +97,22 @@ def _gate_norm_out(p, y, z, cfg):
     return linear(p["out_proj"], y)
 
 
+def _scan(x, dt, A, B, C, D, chunk, initial_state):
+    """The chunked SSD scan, under `local_map` on DTensors."""
+    b, s, H, P = x.shape
+    h = _ssm_head_axis(H)
+    state = (BATCH, h, None, None)
+    specs = ((BATCH, None, h, None), (BATCH, None, h), (h,),
+             (BATCH, None, None), (BATCH, None, None), (h,),
+             None if initial_state is None else state)
+    return local_map(
+        lambda x_, dt_, A_, B_, C_, D_, h0: ssd_ops.ssd_scan(
+            x_, dt_, A_, B_, C_, D_, chunk=chunk, initial_state=h0),
+        (x, dt, A, B, C, D, initial_state), specs,
+        ((BATCH, None, h, None), state),
+        ((b, s, H, P), (b, H, P, B.shape[-1])), site="ssm.scan")
+
+
 def mamba2_seq(p, u, *, cfg, initial_state=None, conv_tails=None, chunk=128):
     """Full-sequence Mamba2 block. u:[b,s,d_model] ->
     (y, (ssm_state bf16, (tail_x, tail_B, tail_C)))."""
@@ -96,9 +125,8 @@ def mamba2_seq(p, u, *, cfg, initial_state=None, conv_tails=None, chunk=128):
     C, tC = _causal_conv(C, p["conv_C"], tail=tC)
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-    y, final = ssd_ops.ssd_scan(x.reshape(b, s, H, P), dt, A, B, C,
-                                p["D"].float(), chunk=chunk,
-                                initial_state=initial_state)
+    y, final = _scan(x.reshape(b, s, H, P), dt, A, B, C, p["D"].float(),
+                     chunk, initial_state)
     y = _gate_norm_out(p, y.reshape(b, s, cfg.d_inner), z, cfg)
     return y, (final.to(COMPUTE_DTYPE), (tx, tB, tC))
 

@@ -24,6 +24,7 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.meshctx import current_mesh, dtensor_scope
 from repro_torch.models import ssm
 from repro_torch.models.attention import (attention_block, decode_attention,
                                           decode_cross_attention,
@@ -165,12 +166,19 @@ def _zero_aux(x):
 def _maybe_remat(fn, remat: bool):
     """`fn`, or `fn` under activation checkpointing (the JAX package's
     `jax.checkpoint`): only its inputs are kept, and its forward runs again
-    in the backward."""
+    in the backward, in the mesh scope it first ran in (the backward may
+    run on another thread, where no mesh is active)."""
     if not remat:
         return fn
 
     def run(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        mesh = current_mesh()
+
+        def scoped(*a):
+            with dtensor_scope(mesh):
+                return fn(*a)
+        return checkpoint(scoped if mesh is not None else fn, *args,
+                          use_reentrant=False)
     return run
 
 

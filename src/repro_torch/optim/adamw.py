@@ -14,6 +14,13 @@ The decay test reads a leaf's rank in the JAX package's stacked layout
 [L, d] array, so it is decayed, while the final norm's [d] is not. The
 port's per-layer [d] leaves are decayed alike, so both packages take the
 same step.
+
+On DTensor leaves the global norm is the global reduction it is in the
+reference (each leaf's sum of squares reduced over the mesh), and each
+leaf is updated through its local tensors in the layout of its moments
+(the gradient brought into that layout first); a param laid out otherwise
+(replicated over `pod` where its moments are sharded, ZeRO-1) gets its new
+value back in its own layout.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import math
 
 import torch
 
+from repro_torch.meshctx import is_dtensor
 from repro_torch.optim.tree import jax_ndims, tree_leaves, tree_map
 
 
@@ -57,11 +65,24 @@ def init_opt_state(params) -> dict:
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
+def _whole(x):
+    """A DTensor's full value as a plain tensor (a reduction over the
+    mesh, for a partial sum); any other tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over the leaves (in the JAX package's order) of each
-    leaf's fp32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    leaf's fp32 sum of squares (of a DTensor leaf, over the whole mesh)."""
+    return torch.sqrt(sum(_whole(torch.sum(torch.square(x.float())))
                           for x in tree_leaves(tree)))
+
+
+def _in_layout(x, like):
+    """DTensor `x` redistributed to the layout of `like`."""
+    if tuple(x.placements) == tuple(like.placements):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
 
 
 @torch.no_grad()
@@ -71,6 +92,7 @@ def adamw_update(params, grads, opt_state, step, hp: AdamWConfig):
     gnorm = global_norm(grads)
     scale = torch.clamp(hp.grad_clip / torch.clamp_min(gnorm, 1e-9),
                         max=1.0)
+    step = step.to_local() if is_dtensor(step) else step
     lr = schedule(hp, step)
     b1, b2 = hp.b1, hp.b2
     t = step.float() + 1.0
@@ -80,11 +102,31 @@ def adamw_update(params, grads, opt_state, step, hp: AdamWConfig):
                               tree_leaves(grads),
                               tree_leaves(opt_state["m"]),
                               tree_leaves(opt_state["v"])):
-        g = g.float() * scale
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * torch.square(g))
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + hp.eps)
-        if nd >= 2:  # decoupled weight decay on matrices only
-            delta = delta + hp.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+        if is_dtensor(m):
+            _update_sharded(p, nd, g, m, v, scale, lr, bc1, bc2, hp)
+        else:
+            _update(p, nd, g, m, v, scale, lr, bc1, bc2, hp)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _update(p, nd, g, m, v, scale, lr, bc1, bc2, hp):
+    """One leaf's update in place, on plain tensors."""
+    b1, b2 = hp.b1, hp.b2
+    g = g.float() * scale
+    m.copy_(b1 * m + (1 - b1) * g)
+    v.copy_(b2 * v + (1 - b2) * torch.square(g))
+    delta = (m / bc1) / (torch.sqrt(v / bc2) + hp.eps)
+    if nd >= 2:  # decoupled weight decay on matrices only
+        delta = delta + hp.weight_decay * p.float()
+    p.copy_((p.float() - lr * delta).to(p.dtype))
+
+
+def _update_sharded(p, nd, g, m, v, scale, lr, bc1, bc2, hp):
+    """One DTensor leaf's update in place, on the local tensors in the
+    moments' layout: the same operations as `_update`, element for
+    element."""
+    pm = _in_layout(p, m)
+    _update(pm.to_local(), nd, _in_layout(g, m).to_local(), m.to_local(),
+            v.to_local(), scale, lr, bc1, bc2, hp)
+    if pm is not p:             # a copy in the moments' layout: bring back
+        p.to_local().copy_(_in_layout(pm, p).to_local())

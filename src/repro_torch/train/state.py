@@ -1,8 +1,9 @@
 """TrainState: params + AdamW moments + step (+ optional error-feedback
 residuals for int8 gradient compression), the port of the JAX package's
-`train/state.py`: `init_train_state` on one device, and the state's shapes
+`train/state.py`: `init_train_state` on one device, the state's shapes
 (meta tensors) and its shardings over a mesh (`launch.sharding` specs, one
-`NamedSharding` a leaf, in the state's own tree structure)."""
+`NamedSharding` a leaf, in the state's own tree structure), and a step's
+batch laid out over a mesh (`shard_batch`)."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -62,3 +63,28 @@ def train_state_shardings(cfg, mesh, *, grad_compression: bool = False):
     if grad_compression:
         out["residuals"] = oshard
     return out
+
+
+def shard_batch(batch, mesh) -> dict:
+    """A step's inputs as DTensors on `mesh`, laid out over the batch axes
+    ("pod", "data") on dim 0 (`launch.sharding.batch_sharding_tree`: a
+    batch that does not divide stays whole): a plain tensor (the whole
+    batch, the same on every rank) is cut to this rank's rows, with no
+    communication; a DTensor stays as it is."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.launch import sharding as S
+    out = {}
+    for k, sh in S.batch_sharding_tree(mesh, batch).items():
+        v = batch[k]
+        if sh is not None and not isinstance(v, DTensor):
+            v = torch.as_tensor(v)
+            v = distribute_tensor(v.to(_mesh_device(mesh)), mesh,
+                                  sh.placements, src_data_rank=None)
+        out[k] = v
+    return out
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

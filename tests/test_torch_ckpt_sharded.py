@@ -5,9 +5,14 @@ in a temp dir) and restored on (4, 1) and whole. The port's sharded
 chunk table is the JAX package's for the same layout (the files are
 byte-identical on the host path, `md.idx` aside from `t_ns`), and each
 package restores the other's sharded checkpoint; the JAX side runs in a
-subprocess with 4 host devices. No JAX in this process: the rank
-processes import this module."""
+subprocess with 4 host devices. The save with one writer a rank
+(`parallel_io=W`) writes the files of the JAX package's
+`save_checkpoint(parallel_io=W)` of the same state, and no rank's shard
+bytes reach rank 0 (each rank's Darshan bytes written are its own
+chunks). No JAX in this process: the rank processes import this
+module."""
 import json
+import math
 import os
 import pathlib
 import struct
@@ -23,6 +28,7 @@ from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs.base import get_config, reduce_for_smoke
 from repro_torch.core.bp_engine import BpReader, EngineConfig
+from repro_torch.core.darshan import MONITOR
 from repro_torch.data.pipeline import SyntheticTokens, to_device
 from repro_torch.launch import distributed as D
 from repro_torch.launch import mesh as tmesh
@@ -81,10 +87,25 @@ def _report(state) -> dict:
 
 
 # ------------------------------------------------------------- rank tasks
-def _rank_save_small(directory, step):
+def _rank_save_small(directory, step, parallel_io=0):
     mesh = tmesh.make_mesh((2, 2), AXES, device_type="cpu")
     state = _shard(_small_state(), _named(mesh, SMALL_SPECS))
-    return str(ckpt.save_checkpoint(directory, state, step, n_io_ranks=4))
+    MONITOR.reset()
+    path = ckpt.save_checkpoint(directory, state, step, n_io_ranks=4,
+                                parallel_io=parallel_io)
+    if not parallel_io:
+        return str(path)
+    return str(path), dict(ckpt.SAVE_STATS), _data_bytes_written()
+
+
+def _data_bytes_written() -> dict:
+    """This process's Darshan bytes written, by `data.<w>` subfile it wrote
+    to (rank 0 also creates them all, empty)."""
+    per_file = MONITOR.snapshot()["per_file"]
+    return {pathlib.Path(p).name: c["POSIX_BYTES_WRITTEN"]
+            for p, c in per_file.items()
+            if pathlib.Path(p).name.startswith("data.")
+            and c.get("POSIX_BYTES_WRITTEN", 0.0) > 0}
 
 
 def _rank_restore_small(directory):
@@ -94,6 +115,27 @@ def _rank_restore_small(directory):
     return dist.get_rank(), step, _report(out)
 
 
+def _rank_save_small_failing(directory, step, bad_rank):
+    """The small state saved one writer a rank with rank `bad_rank`
+    failing to encode its chunks: the error every rank raised."""
+    mesh = tmesh.make_mesh((2, 2), AXES, device_type="cpu")
+    state = _shard(_small_state(), _named(mesh, SMALL_SPECS))
+    real = ckpt._writable
+
+    def broken(chunk, cfg, path):
+        raise OSError("disk full")
+    if dist.get_rank() == bad_rank:
+        ckpt._writable = broken
+    try:
+        ckpt.save_checkpoint(directory, state, step, n_io_ranks=4,
+                             parallel_io=4)
+    except RuntimeError as e:
+        return str(e)
+    finally:
+        ckpt._writable = real
+    return "saved"
+
+
 def _rank_latest_small(directory):
     mesh = tmesh.make_mesh((4, 1), AXES, device_type="cpu")
     got = CheckpointManager(directory).restore_latest(
@@ -101,30 +143,43 @@ def _rank_latest_small(directory):
     return got[1], _report(got[0])
 
 
-def _rank_train_state(directory, device_compress):
+def _rank_train_state(directory, device_compress, parallel_io=0):
     """The smoke smollm train state on (2, 2), saved, then restored on
-    (4, 1); returns the restored boxes."""
+    (4, 1); returns the restored boxes (and with `parallel_io` the
+    save's numbers)."""
     state = init_train_state(CFG, 0, device="cpu")
     m22 = tmesh.make_mesh((2, 2), AXES, device_type="cpu")
     sharded = _shard(state, train_state_shardings(CFG, m22))
+    MONITOR.reset()
     ckpt.save_checkpoint(directory, sharded, 5, n_io_ranks=4,
                          engine_config=EngineConfig(codec="blosc"),
-                         device_compress=device_compress)
+                         device_compress=device_compress,
+                         parallel_io=parallel_io)
+    stats = (dict(ckpt.SAVE_STATS), _data_bytes_written())
     m41 = tmesh.make_mesh((4, 1), AXES, device_type="cpu")
     out, step = ckpt.restore_sharded(directory, train_state_shapes(CFG),
                                      train_state_shardings(CFG, m41))
+    if parallel_io:
+        return step, _report(out), stats
     return step, _report(out)
 
 
-def _rank_step_on_2x2():
+def _rank_step_on_a_mesh(shape, axes):
+    """One step of the smoke state on a mesh of `axes`: its loss, or the
+    error it raises."""
+    from torch.distributed.device_mesh import init_device_mesh
     state = init_train_state(CFG, 0, device="cpu")
-    mesh = tmesh.make_mesh((2, 2), AXES, device_type="cpu")
-    sharded = _shard(state, train_state_shardings(CFG, mesh))
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    shardings = train_state_shardings(CFG, mesh)
+    sharded = _shard(state, shardings)
+    batch = to_device(SyntheticTokens(CFG.padded_vocab, 16, 4, seed=0)
+                      .batch_at(0), "cpu")
     try:
-        make_train_step(CFG, AdamWConfig())(sharded, None)
-    except NotImplementedError as e:
+        _, m = make_train_step(CFG, AdamWConfig(), q_chunk=16, kv_chunk=16)(
+            sharded, batch)
+    except ValueError as e:
         return str(e)
-    return "stepped"
+    return float(m["loss"])
 
 
 # ------------------------------------------------------------------ tests
@@ -148,7 +203,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from repro.ckpt.checkpoint import save_checkpoint, restore_sharded
-port_dir, jax_dir, specs, rspecs = json.loads(sys.argv[1])
+port_dir, jax_dir, specs, rspecs, parallel_io = json.loads(sys.argv[1])
 devs = np.array(jax.devices())
 m22 = Mesh(devs.reshape(2, 2), ("data", "model"))
 m41 = Mesh(devs.reshape(4, 1), ("data", "model"))
@@ -158,7 +213,7 @@ full = {"w": np.arange(64, dtype=np.float32).reshape(8, 8),
         "step": np.int32(7)}
 state = {k: jax.device_put(v, NamedSharding(m22, P(*specs[k])))
          for k, v in full.items()}
-save_checkpoint(jax_dir, state, 3, n_io_ranks=4)
+save_checkpoint(jax_dir, state, 3, n_io_ranks=4, parallel_io=parallel_io)
 like = {k: jax.ShapeDtypeStruct(np.shape(v), np.asarray(v).dtype)
         for k, v in full.items()}
 out, step = restore_sharded(port_dir, like,
@@ -171,11 +226,11 @@ print(json.dumps({"ok": bool(ok), "step": int(step)}))
 """
 
 
-def _jax_side(port_dir, jax_dir) -> dict:
+def _jax_side(port_dir, jax_dir, parallel_io=0) -> dict:
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
                JAX_PLATFORMS="cpu")
     arg = json.dumps([str(port_dir), str(jax_dir), SMALL_SPECS,
-                      RESTORE_SPECS])
+                      RESTORE_SPECS, parallel_io])
     r = subprocess.run([sys.executable, "-c", _JAX_SIDE, arg], env=env,
                        capture_output=True, text=True, timeout=180,
                        cwd=REPO)
@@ -291,6 +346,109 @@ def test_train_state_restores_bit_exact_on_4x1_and_whole(pool, tmp_path,
         assert sorted({c[2] for c in chunks}) == [0, 1, 2, 3], var
 
 
+def _files(path) -> dict:
+    return {p.name: p.read_bytes() for p in path.iterdir()}
+
+
+def _rank_bytes(table, world=4, m=4) -> dict:
+    """{data.<w>: {rank: payload bytes}} of a chunk table."""
+    out: dict = {}
+    for _shape, chunks in table.values():
+        for _off, _ext, rank, agg, nbytes in chunks:
+            out.setdefault(f"data.{agg}", {}).setdefault(rank, 0)
+            out[f"data.{agg}"][rank] += nbytes
+    return out
+
+
+@pytest.mark.parametrize("writers", [4, 2])
+def test_save_one_writer_a_rank_is_the_jax_planes_and_each_restores_the_other(
+        pool, tmp_path, writers):
+    """`parallel_io=W`: W = 4 is a writer a rank, W = 2 two ranks a
+    subfile. The files are the JAX package's parallel save of the same
+    state (its W writer processes), byte for byte: data.<w>, md.0 and
+    each md.<w>.shard, md.idx aside from its t_ns; each rank's Darshan
+    bytes written are exactly its own chunks, in its writer's subfile."""
+    port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+    results = pool.run(_rank_save_small, str(port_dir), 3, writers)
+    assert [r[0] for r in results] == [str(ckpt.checkpoint_path(port_dir,
+                                                                3))] * 4
+    res = _jax_side(port_dir, jax_dir, parallel_io=writers)
+    assert res["ok"] and res["step"] == 3     # JAX restores the port's
+    tp, tj = (ckpt.checkpoint_path(d, 3) for d in (port_dir, jax_dir))
+    fp, fj = _files(tp), _files(tj)
+    assert sorted(fp) == sorted(fj)
+    assert sorted(n for n in fp if n.startswith("data.")) == [
+        f"data.{w}" for w in range(writers)]
+    for name in fp:
+        if name.startswith("data.") or name.startswith("md.") and \
+                name != "md.idx":
+            assert fp[name] == fj[name], name
+    for a, b in zip(_idx_records(tp), _idx_records(tj)):
+        assert a[:5] + a[6:] == b[:5] + b[6:]
+    table = _chunk_table(tp, 3)
+    assert table == _chunk_table(tj, 3)
+    want = _rank_bytes(table)
+    for rank, (_path, stats, wrote) in enumerate(results):
+        sub = f"data.{rank * writers // 4}"
+        assert stats["path"] == "by_rank" and stats["rank"] == rank
+        assert wrote == {sub: float(want[sub][rank])}, rank
+        assert stats["bytes_written"] == want[sub][rank]
+    assert results[0][1]["bytes_to_rank0"] > 0         # the chunk tables
+    # the port restores JAX's parallel save elastically, (2, 2) -> (4, 1)
+    _check_restored(pool.run(_rank_restore_small, str(jax_dir)),
+                    _small_state())
+
+
+def test_save_one_writer_a_rank_commits_nothing_when_a_rank_fails(pool,
+                                                                  tmp_path):
+    """A rank that fails before the commit makes every rank raise (its
+    error comes home to each), and no step is published: an earlier
+    checkpoint stays the newest, as after a torn step of the plane."""
+    pool.run(_rank_save_small, str(tmp_path), 1, 4)
+    msgs = pool.run(_rank_save_small_failing, str(tmp_path), 2, 2)
+    for m in msgs:
+        assert "rank(s) 2" in m and "disk full" in m
+    assert ckpt.list_checkpoints(tmp_path) == [1]
+    assert not ckpt.checkpoint_path(tmp_path, 2).exists()
+    assert (tmp_path / "latest.txt").read_text() == "1"
+
+
+def test_train_state_saved_one_writer_a_rank_restores_on_4x1(pool,
+                                                             tmp_path):
+    """The smoke train state through `parallel_io=4`: rank 0 receives
+    the chunk tables, a small fraction of what the other ranks write,
+    and none of their bytes; restored bit-exact on (4, 1) and whole."""
+    results = pool.run(_rank_train_state, str(tmp_path), False, 4)
+    want = ckpt.flatten_state(init_train_state(CFG, 0, device="cpu"))
+    for step, rep, _stats in results:
+        assert step == 5
+        for name, parts in rep.items():
+            leaf = want[name]
+            full = leaf.parts if isinstance(leaf, ckpt.Stacked) else [leaf]
+            for (off, vals, _pl), t in zip(parts, full):
+                sl = tuple(slice(o, o + e) for o, e in zip(off, vals.shape))
+                np.testing.assert_array_equal(
+                    vals, t.double().numpy()[sl] if sl else t.numpy(),
+                    err_msg=name)
+    table = _chunk_table(ckpt.checkpoint_path(tmp_path, 5), 5)
+    by = _rank_bytes(table)
+    others = 0
+    for rank, (_s, _r, (stats, wrote)) in enumerate(results):
+        assert wrote == {f"data.{rank}": float(by[f"data.{rank}"][rank])}
+        assert set(by[f"data.{rank}"]) == {rank}
+        others += stats["bytes_written"] if rank else 0
+    received = results[0][2][0]["bytes_to_rank0"]
+    assert 0 < received < 0.05 * others
+    back, step = ckpt.restore_checkpoint(
+        tmp_path, init_train_state(CFG, 1, device="cpu"))
+    got = ckpt.flatten_state(back)
+    for name, leaf in want.items():
+        a = leaf.parts if isinstance(leaf, ckpt.Stacked) else [leaf]
+        b = got[name].parts if isinstance(leaf, ckpt.Stacked) else [
+            got[name]]
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), name
+
+
 def test_restore_latest_onto_a_mesh_skips_a_corrupt_newest_step(pool,
                                                                tmp_path):
     for step in (1, 2):
@@ -304,8 +462,13 @@ def test_restore_latest_onto_a_mesh_skips_a_corrupt_newest_step(pool,
 
 
 def test_train_step_raises_on_a_multi_device_mesh(pool):
-    for msg in pool.run(_rank_step_on_2x2):
-        assert "ROADMAP.md Queue 1 item 7b" in msg and "(2, 2)" in msg
+    """A step over a (2, 2) mesh of the reference's axes now runs; one over
+    a mesh with an axis the model has no hints for raises."""
+    losses = pool.run(_rank_step_on_a_mesh, (2, 2), AXES)
+    assert all(isinstance(x, float) and math.isfinite(x) for x in losses)
+    assert len(set(losses)) == 1
+    for msg in pool.run(_rank_step_on_a_mesh, (2, 2), ("data", "expert")):
+        assert "must be among" in msg and "expert" in msg
 
 
 # -------------------------------------------- one-device mesh, in process

@@ -853,3 +853,123 @@ def test_train_step_on_a_dtensor_state_equals_the_plain_state(card_mesh):
     for a, b in zip(tree_leaves(plain), tree_leaves(dstate)):
         assert torch.equal(a, b.to_local())
     assert int(dstate["step"].to_local()) == 1
+
+
+# ------------------------------------- the kernels under local_map (PR 19)
+def _replicated_on(mesh, *ts):
+    from torch.distributed.tensor import DTensor, Replicate
+    return [DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False) for t in ts]
+
+
+def test_flash_and_ssd_through_local_map_equal_the_direct_calls(card_mesh):
+    """On a (1, 1) cuda mesh the kernels run on the DTensors' local
+    tensors: flash with its lse and the SSD scan, bit for bit the direct
+    calls, one launch each."""
+    from repro_torch import meshctx
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=g, device="cuda")
+               .bfloat16() for _ in range(3))
+    want = fops.flash_forward(q, k, v, causal=True)
+    spec = (meshctx.BATCH, None, "model", None)
+    before = fops.flash_attention.launches
+    got = meshctx.local_map(
+        lambda a, b, c: fops.flash_forward(a, b, c, causal=True),
+        tuple(_replicated_on(card_mesh, q, k, v)), (spec,) * 3,
+        (spec, (meshctx.BATCH, "model", None)),
+        ((2, 128, 4, 64), (2, 4, 128)))
+    assert fops.flash_attention.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.to_local(), b)
+    b_, s, h, p, n = 2, 256, 4, 64, 64
+    x = torch.randn(b_, s, h, p, generator=g, device="cuda").bfloat16()
+    dt = torch.rand(b_, s, h, generator=g, device="cuda") * 0.1
+    A = -torch.linspace(1.0, 4.0, h, device="cuda")
+    B, C = (torch.randn(b_, s, n, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    D = torch.ones(h, device="cuda")
+    want = sops.ssd_scan(x, dt, A, B, C, D, chunk=64)
+    hs = (meshctx.BATCH, None, "model", None)
+    before = sops.ssd_scan.launches
+    got = meshctx.local_map(
+        lambda *a: sops.ssd_scan(*a, chunk=64),
+        tuple(_replicated_on(card_mesh, x, dt, A, B, C, D)),
+        (hs, (meshctx.BATCH, None, "model"), ("model",),
+         (meshctx.BATCH, None, None), (meshctx.BATCH, None, None),
+         ("model",)),
+        (hs, (meshctx.BATCH, "model", None, None)),
+        ((b_, s, h, p), (b_, h, p, n)))
+    assert sops.ssd_scan.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.to_local(), b)
+
+
+def test_kernel_wrappers_refuse_a_dtensor(card_mesh):
+    (q,) = _replicated_on(card_mesh, torch.zeros(
+        1, 64, 2, 64, dtype=torch.bfloat16, device="cuda"))
+    before = (fops.flash_attention.launches, sops.ssd_scan.launches,
+              bops.shuffle_blocks.launches)
+    with pytest.raises(TypeError, match="DTensor"):
+        fops.flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="DTensor"):
+        fops.flash_forward(q, q, q)
+    x, dt, A, B = _replicated_on(
+        card_mesh, torch.zeros(1, 64, 2, 32, dtype=torch.bfloat16,
+                               device="cuda"),
+        torch.zeros(1, 64, 2, device="cuda"), torch.ones(2, device="cuda"),
+        torch.zeros(1, 64, 16, dtype=torch.bfloat16, device="cuda"))
+    with pytest.raises(TypeError, match="DTensor"):
+        sops.ssd_scan(x, dt, A, B, B, A)
+    (raw,) = _replicated_on(card_mesh, torch.zeros(4096, dtype=torch.uint8,
+                                                   device="cuda"))
+    for fn, kw in ((bops.shuffle_blocks, {"block": 1024, "itemsize": 4}),
+                   (bops.shuffle_block, {"itemsize": 4}),
+                   (bops.shuffle, {"itemsize": 4})):
+        with pytest.raises(TypeError, match="DTensor"):
+            fn(raw, **kw)
+    assert (fops.flash_attention.launches, sops.ssd_scan.launches,
+            bops.shuffle_blocks.launches) == before
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "deepseek-moe-16b"])
+def test_train_step_on_train_state_shardings_equals_the_plain_step(
+        card_mesh, arch):
+    """A smoke state laid out by `train_state_shardings` on the (1, 1)
+    cuda mesh steps through DTensor ops and the kernels under local_map:
+    loss and every leaf bit-equal to the plain step, the kernels' launches
+    those of the plain step."""
+    import os
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.data.pipeline import SyntheticTokens, to_device
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.tree import tree_leaves, tree_map
+    from repro_torch.train.state import (init_train_state,
+                                         train_state_shardings)
+    from repro_torch.train.step import make_train_step
+    cfg = reduce_for_smoke(get_config(arch))
+    batch = to_device(SyntheticTokens(cfg.padded_vocab, 128, 4, seed=0)
+                      .batch_at(0), "cuda")
+    fn = make_train_step(cfg, AdamWConfig(warmup_steps=1), ssd_chunk=64)
+    plain = init_train_state(cfg, 0)
+    dstate = tree_map(lambda t, s: distribute_tensor(t.clone(), s.mesh,
+                                                     s.placements),
+                      init_train_state(cfg, 0),
+                      train_state_shardings(cfg, card_mesh))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    launches = []
+    try:
+        for state in (plain, dstate):
+            before = (fops.flash_attention.launches, sops.ssd_scan.launches)
+            _, m = fn(state, batch)
+            torch.cuda.synchronize()
+            launches.append((fops.flash_attention.launches - before[0],
+                             sops.ssd_scan.launches - before[1],
+                             float(m["loss"])))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert launches[0] == launches[1] and launches[0][0] > 0
+    for a, b in zip(tree_leaves(plain), tree_leaves(dstate)):
+        assert torch.equal(a, b.to_local())
