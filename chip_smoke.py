@@ -74,7 +74,20 @@
    one-rank nccl group), bit-equal to a full restore, and trains steps 3
    and 4 from it through the flash kernel and saves once through the
    byte-shuffle kernel, bit-equal to 6b's uninterrupted run, with each
-   rank's bytes read beside its box bytes;
+   rank's bytes read beside its box bytes; the same 4 ranks then run a
+   prefill and 3 decode steps of that config on the (2, 2) mesh, params
+   of seed 0 and caches laid out by `cache_sharding_tree`, held within 2
+   noise floors of the card's plain decode (the floor: the card's plain
+   decode against the host's);
+6d. the serve path's prefill and 8 greedy decode steps of zamba2-2.7b (6
+   layers) and smollm-360m (4) at full width on a (1, 1) cuda mesh,
+   DTensor params and a cache laid out by `cache_sharding_tree`, logits
+   and tokens bit-equal to the plain decode, a decode step of each
+   profiled beside the plain one's; and, before the main path, the
+   roofline of zamba2-2.7b's serve prefill and decode step (counted on
+   fake tensors by `roofline.trace_analysis`, H100 peaks) beside the
+   device ms of a profile of each taken there, and one dry-run cell
+   (qwen1.5-0.5b `decode_32k`) on 256 fake ranks;
 7. prints one JSON line of per-kernel numbers, then, as the last line,
    `{"ok": true, "device": {...}}`.
 
@@ -147,15 +160,29 @@ def _device_us(ev, self_only=False) -> float:
     return 0.0
 
 
+PROFILE_TRIES = 3
+
+
 def _profiled(torch, fn, iters: int):
+    """The profiler's rows of `iters` calls of `fn`. A profile that holds
+    host rows but no device activity (CUPTI handed no activity buffer back:
+    seen once on the card at its first flash profile, which the run before
+    had recorded) is taken again, up to `PROFILE_TRIES` times; the callers
+    raise if the last one has none either."""
     from torch.profiler import ProfilerActivity, profile
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    return prof.key_averages()
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(_device_us(ev) for ev in events):
+            break
+        print(f"profile: no device activity recorded (try {attempt + 1} of "
+              f"{PROFILE_TRIES})")
+    return events
 
 
 def _per_call_us(events, iters: int, kernel: str | None = None) -> float:
@@ -2121,6 +2148,280 @@ def run_dtensor_steps(torch, dev, smi: str) -> list:
     return out
 
 
+#: the decode over a (1, 1) cuda mesh: (arch, layers) at full width
+DECODE_PATHS = (("zamba2-2.7b", 6), ("smollm-360m", 4))
+DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS, DECODE_MAX_SEQ = 4, 512, 8, 1024
+
+
+def _decode_run(torch, cfg, params, prompt, profiled: int):
+    """A prefill of `prompt` and DECODE_STEPS greedy decode steps of the
+    serve steps' model calls, the cache grown to DECODE_MAX_SEQ: the
+    logits of the prefill's last position and of each step, the tokens,
+    the prefill's and each step's flash and SSD launches, each step's
+    wall ms and the profile of step `profiled`."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.meshctx import is_dtensor
+    from repro_torch.models import model as M
+    from repro_torch.serve.steps import grow_cache
+
+    def whole(t):
+        return (t.full_tensor() if is_dtensor(t) else t).clone()
+
+    def counts():
+        got = {"flash_attention": fops.flash_attention.launches,
+               "ssd_scan": sops.ssd_scan.launches}
+        fops.flash_attention.launches = sops.ssd_scan.launches = 0
+        return got
+
+    out = {"logits": [], "tokens": [], "wall_ms": [], "launches": []}
+    with torch.inference_mode():
+        counts()
+        logits, cache = M.prefill(params, cfg, {"tokens": prompt},
+                                  q_chunk=256, kv_chunk=256)
+        out["prefill_launches"] = counts()
+        cache = grow_cache(cache, DECODE_MAX_SEQ)
+        out["logits"].append(whole(logits[:, -1:]))
+        tok = torch.argmax(out["logits"][-1][:, -1], dim=-1)[:, None]
+        for i in range(DECODE_STEPS):
+            out["tokens"].append(tok)
+            torch.cuda.synchronize()
+            prof = (profile(activities=[ProfilerActivity.CUDA])
+                    if i == profiled else contextlib.nullcontext())
+            with prof:
+                t0 = time.perf_counter()
+                logits, cache = M.decode_step(params, cfg, tok, cache,
+                                              DECODE_PROMPT + i)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            out["wall_ms"].append(1e3 * wall)
+            out["launches"].append(counts())
+            if i == profiled:
+                out["profiled"] = _profile_rows(prof, wall, 1)
+            out["logits"].append(whole(logits))
+            tok = torch.argmax(out["logits"][-1][:, -1], dim=-1)[:, None]
+        out["cache"] = cache
+    return out
+
+
+def run_dtensor_decode(torch, dev, smi: str) -> list:
+    """The serve path's prefill and DECODE_STEPS greedy decode steps on a
+    (1, 1) cuda mesh, DTensor params (`param_sharding_tree`) and a DTensor
+    cache laid out by `cache_sharding_tree`, against the same on the plain
+    params, for each of DECODE_PATHS at full width (params of seed 0,
+    batch 4, prompt 512, the cache grown to 1024), under deterministic
+    algorithms: the prefill's and every step's logits and tokens
+    bit-equal, every cache leaf laid out as `cache_sharding_tree` says,
+    the kernels' launches those of a prefill (`serve_launches`) and none
+    in decode; decode step 2 of each profiled (wall and device ms, idle
+    share, launches)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.tree import tree_leaves, tree_map
+
+    out = []
+    mesh = make_mesh((1, 1), MESH_AXES, device_type=dev.type)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for arch, layers in DECODE_PATHS:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+            plain = M.init_params(cfg, 0, device=dev)
+            sh = S.param_sharding_tree(cfg, mesh, M.param_shapes(cfg))
+            dparams = tree_map(lambda t, s: distribute_tensor(
+                t.clone(), s.mesh, s.placements), plain, sh)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            prompt = torch.randint(0, cfg.vocab_size,
+                                   (DECODE_BATCH, DECODE_PROMPT),
+                                   generator=gen, device=dev)
+            runs = {name: _decode_run(torch, cfg, p, prompt, profiled=1)
+                    for name, p in (("plain", plain), ("dtensor", dparams))}
+            p, d = runs["plain"], runs["dtensor"]
+            for i, (a, b) in enumerate(zip(p["logits"], d["logits"])):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{arch}: the DTensor decode's "
+                                         f"logits differ at step {i}")
+            if not all(torch.equal(a, b)
+                       for a, b in zip(p["tokens"], d["tokens"])):
+                raise AssertionError(f"{arch}: the DTensor decode's tokens "
+                                     f"differ")
+            want = S.cache_sharding_tree(cfg, mesh, d["cache"])
+            bad = [i for i, (t, w) in enumerate(zip(
+                tree_leaves(d["cache"]), tree_leaves(want)))
+                if tuple(t.placements) != tuple(w.placements)]
+            expect = serve_launches(cfg)
+            for name, r in runs.items():
+                if (r["prefill_launches"] != expect or any(
+                        sum(x.values()) for x in r["launches"])):
+                    raise AssertionError(f"{arch} {name}: launches "
+                                         f"{r['prefill_launches']} (want "
+                                         f"{expect}), decode "
+                                         f"{r['launches']}")
+            if bad:
+                raise AssertionError(f"{arch}: cache leaves {bad} not laid "
+                                     f"out as cache_sharding_tree says")
+            res = {"arch": cfg.name, "n_layers": layers,
+                   "n_params": cfg.n_params(), "batch": DECODE_BATCH,
+                   "prompt": DECODE_PROMPT, "steps": DECODE_STEPS,
+                   "bit_equal": True, "prefill_launches": expect,
+                   **{name: {"wall_ms": r["wall_ms"],
+                             "profiled": r["profiled"]}
+                      for name, r in runs.items()},
+                   "phase_s": time.perf_counter() - t0}
+            print(json.dumps({"dtensor_decode": res}))
+            out.append(res)
+            del plain, dparams, runs, p, d
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+        dist.destroy_process_group()
+    for r in out:
+        p, d = r["plain"], r["dtensor"]
+        pp, dp = p["profiled"], d["profiled"]
+        print(f"DTensor decode on a (1, 1) cuda mesh ({r['arch']}, "
+              f"{r['n_layers']} layers, {r['n_params']} params, batch "
+              f"{r['batch']}, prompt {r['prompt']}, {r['steps']} steps; "
+              f"{smi}): tokens and logits bit-equal to the plain decode; "
+              f"step wall ms {[round(x, 2) for x in d['wall_ms']]} (plain "
+              f"{[round(x, 2) for x in p['wall_ms']]}); profiled step 2 "
+              f"device ms {dp['device_ms']} (plain {pp['device_ms']}), idle "
+              f"share {dp['idle_share']} (plain {pp['idle_share']}), "
+              f"launches {dp['launches']} (plain {pp['launches']}); phase "
+              f"{r['phase_s']:.1f} s")
+    return out
+
+
+def _fake_params(torch, cfg):
+    """`cfg`'s params as fake tensors (an active `FakeTensorMode`), as
+    `ServeEngine` holds them (`cast_for_compute`)."""
+    from repro_torch.models import model as M
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.serve.engine import cast_for_compute
+    return cast_for_compute(tree_map(
+        lambda m: torch.empty(m.shape, dtype=m.dtype), M.param_shapes(cfg)))
+
+
+def run_roofline(torch, dev, smi: str) -> dict:
+    """The roofline of zamba2-2.7b's serve prefill (batch 4, prompt 512)
+    and of one decode step (cache 1024), counted by
+    `roofline.trace_analysis` on fake tensors on one device (the port's
+    counters, the kernels' custom ops and formulas), beside the device ms
+    of each, profiled here (`profile_serve`, early in the process: a
+    profile taken late misses device records) on the serve path's engine
+    at the same shapes. Two bounds: the largest of the three terms, whose
+    memory term counts each op's bytes unfused (an upper bound of the
+    traffic: its share says how far the step is from what the unfused op
+    sequence needs), and the lower bound, whose memory term counts the
+    step's inputs and outputs once (`io_bytes_per_device`: params, cache,
+    tokens, logits), beside the compute term, which divides every FLOP by
+    the bf16 tensor-core peak. Then one production cell of the dry-run,
+    qwen1.5-0.5b `decode_32k` on 256 fake ranks (`launch.dryrun.
+    run_cell`): its status and terms."""
+    import numpy as np
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models import model as M
+    from repro_torch.roofline.analysis import HBM_BW, build_report
+    from repro_torch.roofline.trace_analysis import analyze
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+    t0 = time.perf_counter()
+    arch, B, Sp, _, max_seq = SERVE_PATHS[0]
+    cfg = get_config(arch)
+    eng = ServeEngine(cfg, M.init_params(cfg, 0, device=dev),
+                      ServeConfig(max_batch=B, max_seq=max_seq,
+                                  max_new_tokens=4))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (B, Sp)).astype(np.int32)
+    eng.generate(prompts, new_tokens=2)        # cuBLAS handles, workspaces
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    gen = rng.integers(0, cfg.vocab_size, (B, 4))
+    prof = profile_serve(torch, eng, cfg, tokens, gen, {})
+    del eng, tokens
+    torch.cuda.empty_cache()
+    out = {"arch": arch, "card": smi}
+    with FakeTensorMode(), torch.inference_mode():
+        params = _fake_params(torch, cfg)
+        prompt = torch.empty((B, Sp), dtype=torch.int64)
+        pre = make_prefill_step(cfg, q_chunk=min(256, max_seq),
+                                kv_chunk=min(256, max_seq))
+        cache = M.init_decode_cache(cfg, B, max_seq, device="cpu")
+        tok = torch.empty((B, 1), dtype=torch.int64)
+        counts = {"prefill": analyze(pre, params, {"tokens": prompt}),
+                  "decode_step": analyze(make_decode_step(cfg), params,
+                                         cache, tok, Sp)}
+    for phase, c in counts.items():
+        kind = "prefill" if phase == "prefill" else "decode"
+        r = build_report(arch=arch, shape=f"serve_{phase}", mesh_name="one",
+                         n_devices=1, counts=c, cfg=cfg, kind=kind, seq=Sp,
+                         batch=B)
+        unfused_ms = 1e3 * max(r.compute_s, r.memory_s, r.collective_s)
+        io_ms = 1e3 * c["io_bytes_per_device"] / HBM_BW
+        lower_ms = max(1e3 * r.compute_s, io_ms, 1e3 * r.collective_s)
+        dev_ms = prof[phase]["device_ms"]
+        if not dev_ms:
+            raise AssertionError(f"roofline: no device time for {phase}")
+        out[phase] = {"compute_ms": 1e3 * r.compute_s,
+                      "memory_ms": 1e3 * r.memory_s,
+                      "io_memory_ms": io_ms,
+                      "collective_ms": 1e3 * r.collective_s,
+                      "dominant": r.dominant, "unfused_bound_ms": unfused_ms,
+                      "lower_bound_ms": lower_ms,
+                      "flops": c["flops_per_device"],
+                      "product_flops": c["product_flops_per_device"],
+                      "bytes": c["hbm_bytes_per_device"],
+                      "io_bytes": c["io_bytes_per_device"], "ops": c["ops"],
+                      "measured_device_ms": dev_ms,
+                      "measured_wall_ms": prof[phase]["profiled_wall_ms"],
+                      "launches": prof[phase]["launches"],
+                      "share_of_unfused_bound": unfused_ms / dev_ms,
+                      "share_of_lower_bound": lower_ms / dev_ms}
+    cell = run_cell("qwen1.5-0.5b", "decode_32k", "single", verbose=False)
+    if cell["status"] != "ok":
+        raise AssertionError(f"dry-run cell: {cell}")
+    rr = cell["roofline"]
+    out["production_cell"] = {
+        "arch": "qwen1.5-0.5b", "shape": "decode_32k", "mesh": "single",
+        "n_devices": cell["mesh_info"]["n_devices"],
+        "status": cell["status"], "trace_s": cell["trace_s"],
+        "compute_ms": 1e3 * rr["compute_s"],
+        "memory_ms": 1e3 * rr["memory_s"],
+        "collective_ms": 1e3 * rr["collective_s"],
+        "dominant": rr["dominant"],
+        "collective_op_counts": rr["collective_op_counts"],
+        "argument_gib": cell["memory_analysis"]["argument_bytes"] / 2**30,
+        "temp_gib": cell["memory_analysis"]["temp_bytes"] / 2**30}
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"roofline": out}))
+    for phase in ("prefill", "decode_step"):
+        r = out[phase]
+        print(f"roofline of {arch}'s serve {phase} (batch {B}, prompt {Sp}, "
+              f"cache {max_seq}; H100 peaks; {smi}): compute "
+              f"{r['compute_ms']:.4f} ms, memory {r['memory_ms']:.4f} ms "
+              f"unfused / {r['io_memory_ms']:.4f} ms inputs and outputs "
+              f"once, collective {r['collective_ms']:.4f} ms "
+              f"({r['dominant']}); measured device ms "
+              f"{r['measured_device_ms']} (wall {r['measured_wall_ms']:.2f}"
+              f", early profile); share of the unfused bound "
+              f"{r['share_of_unfused_bound']}, of the lower bound "
+              f"{r['share_of_lower_bound']}")
+    c = out["production_cell"]
+    print(f"dry-run cell qwen1.5-0.5b decode_32k single ({c['n_devices']} "
+          f"fake ranks): {c['status']}, compute {c['compute_ms']:.4f} ms, "
+          f"memory {c['memory_ms']:.4f} ms, collective "
+          f"{c['collective_ms']:.4f} ms ({c['dominant']}), collectives "
+          f"{c['collective_op_counts']}, args {c['argument_gib']:.2f} GiB, "
+          f"temp {c['temp_gib']:.2f} GiB; traced in {c['trace_s']:.1f} s")
+    return out
+
+
 def trainer_setup(full=None):
     """The trainer phase's config (smollm-360m at full width, depth cut to
     TRAINER_LAYERS), its TrainerConfig (batch 8, seq 256, 4 steps,
@@ -2404,6 +2705,118 @@ def mesh_rank_job(src: str, step: int, dst: str, full, dst_step: str,
             "restored_digests": restored, "digests": _digests(state)}
 
 
+#: the mesh job's decode: batch, prompt, decode steps
+MESH_DECODE = (4, 128, 3)
+
+
+def _mesh_decode(torch, cfg, params, dev, mesh=None) -> dict:
+    """A prefill of the seeded prompt and MESH_DECODE's teacher-forced
+    decode steps (seeded tokens): the logits of the prefill's last
+    position and of each step (fp32 numpy, whole), the seconds, and, over
+    a mesh, the cache leaves not laid out as `cache_sharding_tree` says
+    after any step."""
+    import numpy as np
+    from repro_torch.launch import sharding as S
+    from repro_torch.meshctx import is_dtensor
+    from repro_torch.models import model as M
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.serve.steps import grow_cache
+    B, Sp, n = MESH_DECODE
+    rng = np.random.default_rng(7)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, Sp)),
+                             device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (n, B, 1)),
+                           device=dev)
+    batch = {"tokens": prompt}
+    if mesh is not None:
+        from repro_torch.train.state import shard_batch
+        batch = shard_batch(batch, mesh)
+
+    def whole(t):
+        return (t.full_tensor() if is_dtensor(t) else t).float().cpu(
+        ).numpy()
+
+    def faults(cache):
+        if mesh is None:
+            return []
+        want = tree_leaves(S.cache_sharding_tree(cfg, mesh, cache))
+        return [i for i, (t, w) in enumerate(zip(tree_leaves(cache), want))
+                if tuple(t.placements) != tuple(w.placements)]
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, cache = M.prefill(params, cfg, batch, q_chunk=128,
+                                  kv_chunk=128)
+        out = [whole(logits[:, -1:])]
+        cache = grow_cache(cache, Sp + n)
+        bad = faults(cache)
+        for i in range(n):
+            logits, cache = M.decode_step(params, cfg, toks[i], cache,
+                                          Sp + i)
+            out.append(whole(logits))
+            bad += faults(cache)
+    return {"logits": out, "s": time.perf_counter() - t0, "faults": bad}
+
+
+def mesh_rank_decode(full) -> dict:
+    """One rank of the mesh job's decode: the trainer's config with the
+    params of seed 0 (drawn on the host, the same on every rank and on the
+    card) laid out on the (2, 2) mesh by `param_sharding_tree`, a prefill
+    and MESH_DECODE's decode steps with the cache laid out by
+    `cache_sharding_tree` (`_mesh_decode`); rank 0 returns the logits."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.tree import tree_map
+    torch.set_num_threads(MESH_RANK_THREADS)
+    cfg = trainer_setup(full)[0]
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device_type="cpu")
+    sh = S.param_sharding_tree(cfg, mesh, M.param_shapes(cfg))
+    params = tree_map(lambda t, s: distribute_tensor(t, mesh, s.placements),
+                      M.init_params(cfg, 0, device="cpu"), sh)
+    res = _mesh_decode(torch, cfg, params, torch.device("cpu"), mesh)
+    if res["faults"]:
+        raise AssertionError(f"rank {dist.get_rank()}: cache leaves "
+                             f"{res['faults']} not laid out as "
+                             f"cache_sharding_tree says")
+    return res if dist.get_rank() == 0 else {"s": res["s"]}
+
+
+def _logit_gap(a: list, b: list) -> float:
+    """The largest |a - b| over every logit of the prefill and the steps,
+    over the largest |b| (at least 1)."""
+    import numpy as np
+    top = max(1.0, max(float(np.abs(x).max()) for x in b))
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b)) / top
+
+
+def mesh_decode_checks(torch, dev, cfg, ranks: list) -> dict:
+    """The (2, 2) mesh's decode (rank 0's logits) against the card's plain
+    decode from the same params, within 2 noise floors: the floor is the
+    card's plain decode against the plain decode on the host."""
+    from repro_torch.models import model as M
+    host = M.init_params(cfg, 0, device="cpu")
+    card = {k: v for k, v in host.items()}
+    from repro_torch.optim.tree import tree_map
+    card = tree_map(lambda t: t.to(dev), host)
+    on_card = _mesh_decode(torch, cfg, card, dev)
+    on_host = _mesh_decode(torch, cfg, host, torch.device("cpu"))
+    floor = _logit_gap(on_card["logits"], on_host["logits"])
+    gap = _logit_gap(ranks[0]["logits"], on_card["logits"])
+    res = {"batch": MESH_DECODE[0], "prompt": MESH_DECODE[1],
+           "steps": MESH_DECODE[2], "gap": gap, "floor": floor,
+           "gap_in_floors": gap / floor if floor else None,
+           "card_s": on_card["s"], "host_s": on_host["s"],
+           "ranks_s": [r["s"] for r in ranks]}
+    if not gap <= 2 * floor:
+        raise AssertionError(f"the (2, 2) decode is {gap} from the card's, "
+                             f"past 2 noise floors ({floor})")
+    return res
+
+
 def _shuffled_chunks(state) -> int:
     """The `shuffle_blocks` launches a device-compressed save of `state`
     makes: one a tensor leaf or layer of rank >= 1 that is not bfloat16."""
@@ -2582,6 +2995,9 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
         ranks = pool.run(mesh_rank_job, str(src), step, str(dst), full,
                          str(dst_step), MESH_DEVICE)
         t["job_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dec_ranks = pool.run(mesh_rank_decode, full)
+        t["decode_job_s"] = time.perf_counter() - t0
     digests = [r.pop("digests") for r in ranks]
     restored = [r.pop("restored_digests") for r in ranks]
     by_rank = _by_rank_checkpoint(checkpoint_path(dst_step, step + 1),
@@ -2683,6 +3099,7 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
         summary = mesh_summary(mesh)
     finally:
         dist.destroy_process_group()
+    decode = mesh_decode_checks(torch, dev, cfg, dec_ranks)
     res = {"arch": cfg.name, "n_layers": cfg.n_layers, "step": at,
            "mesh_4rank": {"shape": list(MESH_SHAPE), "axes": list(MESH_AXES),
                           "backend": "gloo", "device": MESH_DEVICE},
@@ -2694,7 +3111,8 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
            "flash_launches": flash, "shuffle_launches": shuffles,
            "bit_exact": True, "t": t, "card": smi,
            "mesh_device": MESH_DEVICE, "sharded_step": sharded,
-           "by_rank": by_rank, "shards_checked": shards_checked}
+           "by_rank": by_rank, "shards_checked": shards_checked,
+           "decode": decode}
     print(json.dumps({"mesh": res}))
     return res
 
@@ -2738,6 +3156,15 @@ def print_mesh(res: dict):
           f"a full restore on the card; bytes to rank 0 "
           f"{br['bytes_to_rank0']} (the chunk tables); bytes a subfile "
           f"{br['subfile_bytes']} ({card})")
+    dc = res["decode"]
+    print(f"  the (2, 2) decode (batch {dc['batch']}, prompt {dc['prompt']}, "
+          f"{dc['steps']} steps, cache by cache_sharding_tree) against the "
+          f"card's plain decode: logit gap {dc['gap']:.3e} = "
+          f"{dc['gap_in_floors']} noise floors (floor {dc['floor']:.3e}: "
+          f"the card's plain decode against the host's); ranks "
+          f"{[round(x, 2) for x in dc['ranks_s']]} s, card "
+          f"{dc['card_s']:.2f} s, host {dc['host_s']:.2f} s, the job "
+          f"{res['t']['decode_job_s']:.1f} s")
 
 
 def manager_stats(m) -> dict:
@@ -2838,6 +3265,16 @@ def main() -> int:
     # the train step on a (1, 1) cuda mesh with DTensors, against the
     # plain-tensor step (early too: it is profiled)
     dtensor = run_dtensor_steps(torch, dev, smi)
+    torch.cuda.empty_cache()
+    # the serve path's prefill and decode on a (1, 1) cuda mesh, DTensor
+    # params and a cache laid out by cache_sharding_tree, against the plain
+    # decode (profiled: early too)
+    dtensor_decode = run_dtensor_decode(torch, dev, smi)
+    torch.cuda.empty_cache()
+    # the roofline of zamba2's serve prefill and decode step (fake tensors,
+    # the port's counters) beside a profile of each taken here, early, and
+    # one dry-run cell on 256 fake ranks
+    run_roofline(torch, dev, smi)
     torch.cuda.empty_cache()
 
     counters = {"deposit_cic": dops.deposit,
@@ -2997,9 +3434,12 @@ def main() -> int:
     # step's first step (the kernels' rows); the lse instance runs only on
     # the train path
     train_launch = train["launches_per_step"][0]
-    # the DTensor steps' launches through local_map, two steps a path
+    # the DTensor steps' launches through local_map, two steps a path, and
+    # the decode phase's prefills (plain and DTensor)
     dtensor_launch = {k: sum(2 * r["dtensor"]["launches"][k]
                              for r in dtensor)
+                      + sum(2 * r["prefill_launches"][k]
+                            for r in dtensor_decode)
                       for k in ("flash_attention", "ssd_scan")}
     path_launches = {k: serve_launches[k] + train_launch[k]
                      + dtensor_launch[k] for k in serve_launches}

@@ -145,6 +145,14 @@ def refuse_dtensor(name: str, *tensors):
                         f"experimental.local_map)")
 
 
+def is_fake(t) -> bool:
+    """A tensor with no memory behind it (a `FakeTensor`, or one on the
+    meta device): a wrapper sends it to its custom op, whose fake
+    implementation gives the output shapes."""
+    from torch._subclasses.fake_tensor import is_fake as _fake
+    return t.device.type == "meta" or _fake(t)
+
+
 def require_cuda(name: str, *tensors: torch.Tensor, dtype: torch.dtype):
     """Validate what a kernel takes: CUDA, one device, `dtype`, contiguous."""
     dev = tensors[0].device

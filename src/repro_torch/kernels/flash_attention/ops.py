@@ -8,12 +8,21 @@ With grad enabled and an input that requires it, the call goes through
 `FlashAttention`, a `torch.autograd.Function`: its forward is the same
 kernel (or plain version), which also writes the row log-sum-exp, and its
 backward is `ref.flash_attention_bwd_plain`, the plain mirror of the JAX
-package's `_flash_bwd_impl` (jnp there, not a Pallas kernel)."""
+package's `_flash_bwd_impl` (jnp there, not a Pallas kernel).
+
+A fake tensor (`torch._subclasses.FakeTensor` or the meta device, on any
+device: the dry-run's stand-ins, which have no memory to launch on) goes
+to `torch.ops.repro_torch.flash_fwd`, a `torch.library` custom op whose
+fake implementation gives the output shapes and dtypes and whose flop
+formula (`flash_flops`, registered with `torch.utils.flop_counter`)
+counts what the kernel computes."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (
@@ -41,6 +50,54 @@ def _check_operand(name, t, dev):
                          f"16-byte aligned start (16-byte row loads)")
 
 
+#: the kernel's tiles: query rows a block, rows a warp, keys a tile
+BLOCK_Q, WARP_Q, TILE_K = 128, 16, 64
+
+
+@functools.lru_cache(maxsize=256)
+def flash_flops(B: int, H: int, Sq: int, Skv: int, D: int,
+                causal: bool) -> int:
+    """The products the kernel computes, 2 flops a multiply-add: each warp
+    of each block takes Q.K^T (16 x 64 x D) and P.V (16 x 64 x D) of every
+    key tile it does not skip. A causal launch runs a block's tiles up to
+    its last row and a warp skips a tile whose first key lies past its
+    last row (`csrc/flash_attention.cu`); ragged tiles run whole,
+    masked."""
+    pairs = 0
+    n_qt = -(-Sq // BLOCK_Q)
+    for qt in range(n_qt):
+        q0 = qt * BLOCK_Q
+        kv_end = min(Skv, q0 + BLOCK_Q) if causal else Skv
+        n_kt = -(-kv_end // TILE_K)
+        for w0 in range(0, BLOCK_Q, WARP_Q):
+            pairs += (min(n_kt, (q0 + w0 + WARP_Q - 1) // TILE_K + 1)
+                      if causal else n_kt)
+    return B * H * pairs * 4 * WARP_Q * TILE_K * D
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of the kernel on a CUDA tensor, of the plain version on
+    a CPU one."""
+    if q.is_cuda:
+        return _kernel(q, k, v, causal, with_lse=True)
+    return flash_fwd_plain(q, k, v, causal=causal)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal):
+    B, Sq, H, D = q.shape
+    return (q.new_empty((B, Sq, H, D)),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_op_flops(q_shape, k_shape, v_shape, causal, *args, **kwargs):
+    B, Sq, H, D = q_shape
+    return flash_flops(B, H, Sq, k_shape[1], D, causal)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, qc: int = 512,
                     kc: int = 512) -> torch.Tensor:
     """q: [B,Sq,H,D], k/v: [B,Skv,H,D] (H(q) == H(kv); GQA callers expand
@@ -50,6 +107,8 @@ def flash_attention(q, k, v, *, causal: bool = True, qc: int = 512,
     _build.refuse_dtensor("flash_attention", q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, qc, kc)
+    if _build.is_fake(q):
+        return _flash_op(q, k, v, causal)[0]
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, q_chunk=qc,
                                      kv_chunk=kc)
@@ -62,6 +121,8 @@ def flash_forward(q, k, v, *, causal: bool = True, qc: int = 512,
     output on a CUDA tensor, the plain version on a CPU one. A DTensor
     raises TypeError."""
     _build.refuse_dtensor("flash_forward", q, k, v)
+    if _build.is_fake(q):
+        return _flash_op(q, k, v, causal)
     if not q.is_cuda:
         return flash_fwd_plain(q, k, v, causal=causal, q_chunk=qc,
                                kv_chunk=kc)

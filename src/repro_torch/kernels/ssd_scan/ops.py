@@ -11,13 +11,21 @@ With grad enabled and an input that requires it, the padded call goes
 through `SsdScan`, a `torch.autograd.Function` whose forward is the same
 kernel (or plain version) and whose backward recomputes the plain
 `ssd_chunked` on the same padded inputs and differentiates it: the JAX
-package differentiates `ssd_chunked` by autodiff (`models/ssm.py`)."""
+package differentiates `ssd_chunked` by autodiff (`models/ssm.py`).
+
+A fake tensor (`torch._subclasses.FakeTensor` or the meta device: the
+dry-run's stand-ins) goes to `torch.ops.repro_torch.ssd_scan`, a
+`torch.library` custom op whose fake implementation gives y and the final
+state and whose flop formula (`ssd_flops`, registered with
+`torch.utils.flop_counter`) counts the products of the kernel's two
+launches."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import COMPUTE_DTYPE, ssd_chunked
@@ -30,6 +38,57 @@ P_SLICE = 32
 _SIGNATURES = {"jbp_ssd_scan": (
     *(ctypes.c_void_p,) * 10, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)}
+
+
+#: the kernels' tile edge (mma.sync m16n8k16 rows)
+TILE = 16
+
+
+def ssd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int, *,
+              kernel: bool = True) -> int:
+    """Products of the scan over s steps (a multiple of `chunk`), 2 flops
+    a multiply-add. With `kernel`, what `csrc/ssd_scan.cu` computes:
+    `ssd_cb_kernel`'s C.B^T once per batch and chunk on the 16 x 16 tiles
+    on and below the diagonal (a chunk padded to a multiple of 16), then
+    `ssd_chunk_scan_kernel`'s three products a head and chunk (M'.x on
+    the same tiles, C against the state, the state update), each with its
+    fp32 operand split into two bf16 halves, so counted twice. Without,
+    the products of the plain `ssd_chunked`: every tile, no split."""
+    nc = s // chunk
+    if not kernel:
+        cb = 2 * chunk * chunk * n
+        scan = 2 * chunk * chunk * p + 4 * chunk * n * p
+        return b * nc * (cb + h * scan)
+    q = -(-chunk // TILE) * TILE
+    nt = q // TILE
+    tiles = nt * (nt + 1) // 2
+    cb = tiles * 2 * TILE * TILE * n
+    scan = 2 * (tiles * 2 * TILE * TILE * p + 4 * q * n * p)
+    return b * nc * (cb + h * scan)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+            initial_state: torch.Tensor | None,
+            chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, final state) of the scan of padded inputs: the kernel on a
+    CUDA tensor, the plain version on a CPU one."""
+    return _forward(chunk, x, dt, A, B, C, D, initial_state)
+
+
+@_ssd_op.register_fake
+def _(x, dt, A, B, C, D, initial_state, chunk):
+    b, s, h, p = x.shape
+    return (x.new_empty((b, s, h, p), dtype=COMPUTE_DTYPE),
+            x.new_empty((b, h, p, B.shape[-1]), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _ssd_op_flops(x_shape, dt_shape, A_shape, B_shape, *args, **kwargs):
+    chunk = args[-1]
+    b, s, h, p = x_shape
+    return ssd_flops(b, s, h, p, B_shape[-1], chunk)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -109,8 +168,10 @@ ssd_scan.launches = 0
 
 
 def _forward(chunk, x, dt, A, B, C, D, initial_state):
-    """The kernel on a CUDA tensor, the plain version on a CPU one, on
-    inputs already padded to whole chunks."""
+    """The kernel on a CUDA tensor, the plain version on a CPU one, the
+    custom op on a fake one, on inputs already padded to whole chunks."""
+    if _build.is_fake(x):
+        return _ssd_op(x, dt, A, B, C, D, initial_state, chunk)
     if x.is_cuda:
         return _kernel(x, dt, A, B, C, D, chunk, initial_state)
     return ssd_chunked(x, dt, A, B, C, D, chunk=chunk,

@@ -25,6 +25,8 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import torch
+
 _STATE = threading.local()
 _SCOPE_LOCK = threading.Lock()
 _SCOPES = 0
@@ -135,7 +137,9 @@ def local_map(fn, args, in_specs, out_specs, out_shapes, *, site: str = "",
     partial sum (a contraction over a dim sharded there): each rank's
     part is one slice of a stack sharded over those axes, and the stack's
     sum is the output, so its backward hands each rank the whole
-    gradient."""
+    gradient. The sum is a `Partial` over those axes, which DTensor
+    reduces where a reader needs it whole (each reader: a normed residual
+    read by three projections is reduced three times)."""
     if not any(is_dtensor(a) for a in args):
         # an alias of each input that takes a gradient: its uses inside
         # `fn` sum their gradients there first, as they do in the local
@@ -183,6 +187,26 @@ def local_map(fn, args, in_specs, out_specs, out_shapes, *, site: str = "",
     for i, o in enumerate((out,) if single else out):
         _note(f"{site}.out{i}" if site else "", o)
     return out
+
+
+def assign(dst, src):
+    """`dst[...] = src` in place (a decode cache's slot or state). On a
+    DTensor `dst` each rank writes its own shard: `src` is laid out as
+    `dst` first (a slice of what is whole, or a gather of the small `src`
+    over an axis `dst` does not split), never `dst` gathered."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return dst
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = dst.device_mesh
+    if not is_dtensor(src):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    if tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(mesh, dst.placements)
+    with torch.no_grad():
+        dst.to_local().copy_(src.to_local())
+    return dst
 
 
 @contextlib.contextmanager

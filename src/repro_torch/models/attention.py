@@ -24,10 +24,14 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     NEG_INF, flash_attention_plain, reference_attention)
-from repro_torch.meshctx import (BATCH, axis_size, is_dtensor, local_map,
-                                shard_hint)
+from repro_torch.meshctx import (BATCH, assign, axis_size, is_dtensor,
+                                local_map, shard_hint)
 from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope,
                                        init_rmsnorm, normal, rms_norm)
+
+
+#: the batch axis of a decode cache (`launch.sharding.cache_pspec_tree`)
+FSDP = "data"
 
 
 def _attn_axes(cfg):
@@ -219,35 +223,85 @@ def attention_block(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
     return y, (k, v)
 
 
-def _decode_core(p, q, k, v, *, cfg, valid=None):
-    """One query token over k/v [B,Skv,Hkv,D] with GQA grouping: fp32
-    scores and PV of the bf16 values, bf16 weights; `valid` [Skv] masks
-    keys out. Returns the projected output [B,1,d]."""
-    B, hd = q.shape[0], cfg.resolved_head_dim
-    Hkv, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, 1, Hkv, G, hd).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg,
-                     k.to(COMPUTE_DTYPE).float()) / math.sqrt(hd)
+def _cache_axes(k):
+    """(heads, head_dim) axes of a decode cache k [B,S,Hkv,hd] over
+    `model`, read off its own placements (`launch.sharding.
+    cache_pspec_tree` lays it out): None for each off-mesh or where the
+    cache is whole over `model`."""
+    mesh = getattr(k, "device_mesh", None)
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return None, None
+    q = k.placements[mesh.mesh_dim_names.index("model")]
+    dim = q.dim % k.ndim if q.is_shard() else None
+    return ("model" if dim == 2 else None), ("model" if dim == 3 else None)
+
+
+def _scores(q, k):
+    """Unscaled fp32 scores [B,Hkv,G,1,Skv] of one query token q
+    [B,1,H,hd] against k [B,Skv,Hkv,hd], the query heads grouped by kv
+    head."""
+    B, _, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, 1, Hkv, H // Hkv, hd).float()
+    return torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(COMPUTE_DTYPE).float())
+
+
+def _attend(s, v, hd: int, valid):
+    """Scaled, masked softmax of the scores and its PV over v
+    [B,Skv,Hkv,D]: bf16 weights, fp32 products of the bf16 values ->
+    [B,1,H,D] bf16."""
+    s = s / math.sqrt(hd)
     if valid is not None:
         s = torch.where(valid, s, NEG_INF)
     w = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE)
     o = torch.einsum("bhgqk,bkhd->bhgqd", w.float(),
                      v.to(COMPUTE_DTYPE).float()).to(COMPUTE_DTYPE)
-    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, cfg.n_heads, hd)
-    return _out_proj(p["wo"], o)
+    B, Hkv, G, _, D = o.shape
+    return o.permute(0, 3, 1, 2, 4).reshape(B, 1, Hkv * G, D)
+
+
+def _decode_core(p, q, k, v, *, cfg, valid=None):
+    """One query token over k/v [B,Skv,Hkv,D] with GQA grouping: fp32
+    scores and PV of the bf16 values, bf16 weights; `valid` [Skv] masks
+    keys out. Returns the projected output [B,1,d].
+
+    On DTensors the cache stays where it lies: q (one token, small) is
+    laid out as the cache (batch over `data`, heads or head_dim over
+    `model`, `_cache_axes`), the scores and the PV are local, and with a
+    head_dim-sharded cache the scores are partial sums whose all-reduce
+    precedes the softmax; the output goes back to q's heads layout for
+    the output projection."""
+    hd = cfg.resolved_head_dim
+    B, Skv = k.shape[0], k.shape[1]
+    Hkv, H = cfg.n_kv_heads, cfg.n_heads
+    kh, kd = _cache_axes(k)
+    kv = (FSDP, None, kh, kd)
+    sc = (FSDP, kh, None, None, None)
+    s = local_map(_scores, (q, k), (kv, kv), (sc,),
+                  ((B, Hkv, H // Hkv, 1, Skv),), site="attn.decode.scores",
+                  partial=("model",) if kd else ())
+    s = shard_hint(s, *sc, site="attn.decode.softmax")
+    o = local_map(lambda s_, v_: _attend(s_, v_, hd, valid), (s, v),
+                  (sc, kv), ((FSDP, None, kh, kd),), ((B, 1, H, hd),),
+                  site="attn.decode.pv")
+    qh, qd = _attn_axes(cfg)[0]
+    o = shard_hint(o, BATCH, None, qh, qd, site="attn.decode.out")
+    return _out_proj(p["wo"], o, (qh, qd))
 
 
 def decode_attention(p, x, cache_k, cache_v, cache_len: int, *, cfg):
     """One-token decode. x:[B,1,d]; cache_k/v:[B,Smax,Hkv,D]; cache_len an
     int. Writes the new k/v into the cache in place (the JAX package
-    donates the cache and returns an updated copy). Returns
+    donates the cache and returns an updated copy; on a DTensor cache each
+    rank writes its own shard, `meshctx.assign`). Returns
     (y, cache_k, cache_v)."""
     B, Smax = cache_k.shape[0], cache_k.shape[1]
     positions = torch.full((B, 1), cache_len, dtype=torch.int32,
                            device=x.device)
     q, k_new, v_new = _project_qkv(p, x, x, cfg, positions, positions)
-    cache_k[:, cache_len:cache_len + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, cache_len:cache_len + 1] = v_new.to(cache_v.dtype)
+    at = slice(cache_len, cache_len + 1)
+    assign(cache_k[:, at], k_new.to(cache_k.dtype))
+    assign(cache_v[:, at], v_new.to(cache_v.dtype))
     valid = torch.arange(Smax, device=x.device) <= cache_len
     y = _decode_core(p, q, cache_k, cache_v, cfg=cfg, valid=valid)
     return y, cache_k, cache_v

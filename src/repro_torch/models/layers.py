@@ -49,10 +49,52 @@ def init_linear(gen, d_in, d_out, *, device, bias=False, dtype=torch.float32):
 
 def linear(p, x):
     """bf16 projection: fp32 accumulation inside the product, bf16 in and
-    out (`layers.py:28-37` of the JAX package)."""
+    out (`layers.py:28-37` of the JAX package). On DTensors,
+    `_sharded_linear`."""
+    if is_dtensor(x) or is_dtensor(p["w"]):
+        return _sharded_linear(p, x)
     y = torch.matmul(x.to(COMPUTE_DTYPE), p["w"].to(COMPUTE_DTYPE))
     if "b" in p:
         y = y + p["b"].to(COMPUTE_DTYPE)
+    return y
+
+
+def _model_split(w) -> tuple:
+    """(in, out): "model" for the dim of weight [d_in, d_out] that its
+    placements split over `model`, else None."""
+    names = w.device_mesh.mesh_dim_names
+    if "model" not in names:
+        return None, None
+    q = w.placements[names.index("model")]
+    if not q.is_shard():
+        return None, None
+    return ("model", None) if q.dim == 0 else (None, "model")
+
+
+def _sharded_linear(p, x):
+    """The product local to each rank's batch rows, the weight gathered
+    whole over `data` (the ZeRO-3 gather) and split over `model` as it
+    lies: column-parallel (d_out over `model`) gives the output's features
+    over `model`; row-parallel (d_in over `model`) reads x's features over
+    `model` and gives a partial sum over it. The layout XLA's SPMD
+    partitioner gives the reference's einsums: DTensor's own choice for a
+    matmul of a batch-sharded x and an FSDP-sharded weight sometimes
+    gathers the batch instead, and every rank then repeats its rows'
+    products."""
+    w = p["w"]
+    tin, tout = _model_split(w)
+    lead = (BATCH,) + (None,) * (x.ndim - 2)
+    b = p.get("b")
+    bias_in = b is not None and tin is None
+    args = (x, w, b) if bias_in else (x, w)
+    specs = ((*lead, tin), (tin, tout), (tout,))[:len(args)]
+    y = local_map(
+        lambda x_, w_, *b_: linear({"w": w_, **({"b": b_[0]} if b_ else
+                                                 {})}, x_),
+        args, specs, ((*lead, tout),), ((*x.shape[:-1], w.shape[-1]),),
+        partial=("model",) if tin else ())
+    if b is not None and not bias_in:
+        y = y + b.to(COMPUTE_DTYPE)
     return y
 
 
@@ -154,6 +196,14 @@ def _replicated(t, mesh):
 
 def unembed(p, x):
     """Hidden states -> fp32 logits: the fp32 product of the bf16 values
-    (JAX: bf16 einsum with `preferred_element_type=float32`)."""
+    (JAX: bf16 einsum with `preferred_element_type=float32`). On DTensors
+    the product is local to each rank's batch rows and its slice of the
+    vocab (over `model`), the table gathered whole over `data`."""
+    if is_dtensor(x) or is_dtensor(p["table"]):
+        t = p["table"]
+        lead = (BATCH,) + (None,) * (x.ndim - 2)
+        return local_map(lambda x_, t_: unembed({"table": t_}, x_),
+                         (x, t), ((*lead, None), ("model", None)),
+                         ((*lead, "model"),), ((*x.shape[:-1], t.shape[0]),))
     t = p["table"].to(COMPUTE_DTYPE)
     return torch.matmul(x.float(), t.float().t())

@@ -3,7 +3,8 @@ port of the JAX package's `models/model.py`:
     init_params(cfg, seed, device=...)              -> params (nested dicts)
     forward(params, cfg, batch, ...)                -> (logits, aux)
     prefill(params, cfg, batch, ...)                -> (logits, cache)
-    decode_step(params, cfg, token, cache, length)  -> (logits, cache)
+    decode_step(params, cfg, token, cache, length, *, embeds=None)
+                                                    -> (logits, cache)
     loss_fn(params, cfg, batch, ...)                -> (loss, metrics)
     make_decode_cache_spec / init_decode_cache
 
@@ -20,9 +21,11 @@ import math
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.meshctx import BATCH, dtensor_scope, mesh_of, shard_hint
-from repro_torch.models.layers import (COMPUTE_DTYPE, embed, init_embedding,
-                                       init_rmsnorm, rms_norm, unembed)
+from repro_torch.meshctx import (BATCH, dtensor_scope, is_dtensor, mesh_of,
+                                 shard_hint)
+from repro_torch.models.layers import (COMPUTE_DTYPE, _replicated, embed,
+                                       init_embedding, init_rmsnorm, rms_norm,
+                                       unembed)
 from repro_torch.models.transformer import stack_for
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -134,17 +137,53 @@ def _forward(params, cfg, batch, *, remat, with_cache, q_chunk, kv_chunk,
 
 
 def prefill(params, cfg, batch, **kw):
+    """The forward with its decode cache. Over a mesh the cache comes out
+    laid out as `launch.sharding.cache_sharding_tree` says, the layout
+    `decode_step` takes."""
     logits, _, cache = forward(params, cfg, batch, with_cache=True, **kw)
+    mesh = mesh_of(params["embed"])
+    if mesh is not None:
+        cache = lay_out_cache(cfg, cache, mesh)
     return logits, cache
 
 
-def decode_step(params, cfg, token, cache, cache_len: int):
-    """One-token decode. token:[B,1] int; cache_len an int. Updates `cache`
-    in place and returns (logits [B,1,V], cache)."""
-    x = embed(params["embed"], token)
-    x, cache = stack_for(cfg).step(params["stack"], x, cache, cache_len, cfg)
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(_head(params, cfg), x), cache
+def lay_out_cache(cfg, cache, mesh):
+    """`cache` (DTensors, or plain tensors whole on every rank) laid out
+    on `mesh` by `launch.sharding.cache_sharding_tree`."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.sharding import cache_sharding_tree
+    from repro_torch.optim.tree import tree_map
+
+    def lay(t, sh):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        want = tuple(sh.placements)
+        return t if tuple(t.placements) == want else \
+            t.redistribute(mesh, want)
+    return tree_map(lay, cache, cache_sharding_tree(cfg, mesh, cache))
+
+
+def decode_step(params, cfg, token, cache, cache_len: int, *, embeds=None):
+    """One-token decode. token:[B,1] int (or embeds:[B,1,d], the audio
+    family); cache_len an int. Updates `cache` in place and returns
+    (logits [B,1,V], cache). Over a mesh (DTensor params and a cache laid
+    out by `launch.sharding.cache_sharding_tree`) it runs in
+    `meshctx.dtensor_scope`; a plain token or embeds is taken as the
+    whole batch, the same on every rank."""
+    mesh = mesh_of(params["embed"])
+    with dtensor_scope(mesh):
+        if embeds is not None:
+            x = embeds.to(COMPUTE_DTYPE)
+            if mesh is not None and not is_dtensor(x):
+                x = _replicated(x, mesh)
+        else:
+            x = embed(params["embed"], token)
+        x, cache = stack_for(cfg).step(params["stack"], x, cache, cache_len,
+                                       cfg)
+        x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return unembed(_head(params, cfg), x), cache
 
 
 # ------------------------------------------------------------------- loss

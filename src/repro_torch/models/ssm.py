@@ -131,25 +131,56 @@ def mamba2_seq(p, u, *, cfg, initial_state=None, conv_tails=None, chunk=128):
     return y, (final.to(COMPUTE_DTYPE), (tx, tB, tC))
 
 
-def mamba2_step(p, u, ssm_state, conv_tails, *, cfg):
-    """One-token decode. u:[b,1,d_model] -> (y, (state bf16, tails))."""
-    b = u.shape[0]
-    H, P = cfg.n_ssm_heads, cfg.ssm_headdim
-    z, x, B, C, dt_raw = _project(p, u)
-    tx, tB, tC = conv_tails
-    x, tx = _causal_conv(x, p["conv_x"], tail=tx)
-    B, tB = _causal_conv(B, p["conv_B"], tail=tB)
-    C, tC = _causal_conv(C, p["conv_C"], tail=tC)
+def _step_core(x, B, C, dt_raw, tx, tB, tC, wx, bx, wB, bB, wC, bC,
+               dt_bias, A_log, D, ssm_state):
+    """The recurrence of one decode token after the projections: the
+    causal convs (weights w*, biases b*) against their tails, one SSD step
+    from `ssm_state` [b,H,P,N] (H the heads of `dt_raw`, the rank's own on
+    a mesh). -> (y [b,1,H*P] bf16, new state bf16, new tails)."""
+    b, H = x.shape[0], dt_raw.shape[-1]
+    P = x.shape[-1] // H
+    x, tx = _causal_conv(x, {"w": wx, "b": bx}, tail=tx)
+    B, tB = _causal_conv(B, {"w": wB, "b": bB}, tail=tB)
+    C, tC = _causal_conv(C, {"w": wC, "b": bC}, tail=tC)
     x = x[:, 0].reshape(b, H, P).float()
     B = B[:, 0].float()
     C = C[:, 0].float()
-    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
+    dt = F.softplus(dt_raw[:, 0].float() + dt_bias.float())
+    A = -torch.exp(A_log.float())
     decay = torch.exp(dt * A)                                   # [b,H]
     upd = torch.einsum("bhp,bn->bhpn", x * dt[..., None], B)
     new_state = ssm_state.float() * decay[..., None, None] + upd
     y = (torch.einsum("bhpn,bn->bhp", new_state, C)
-         + p["D"].float()[None, :, None] * x)
-    y = y.reshape(b, 1, cfg.d_inner).to(COMPUTE_DTYPE)
-    return (_gate_norm_out(p, y, z, cfg),
-            (new_state.to(COMPUTE_DTYPE), (tx, tB, tC)))
+         + D.float()[None, :, None] * x)
+    return (y.reshape(b, 1, H * P).to(COMPUTE_DTYPE),
+            new_state.to(COMPUTE_DTYPE), tx, tB, tC)
+
+
+def mamba2_step(p, u, ssm_state, conv_tails, *, cfg):
+    """One-token decode. u:[b,1,d_model] -> (y, (state bf16, tails)).
+
+    The recurrence runs under `local_map`: on DTensors, on each rank's batch
+    rows (over `data`, as the cache lies) and SSM heads (over `model`
+    where they divide: d_inner's channels, the state's heads, the x
+    conv's tail and weights); the einsums over the state width N are
+    local."""
+    b = u.shape[0]
+    H, P, N = cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    z, x, B, C, dt_raw = _project(p, u)
+    args = (x, B, C, dt_raw, *conv_tails,
+            *(p[c][k] for c in ("conv_x", "conv_B", "conv_C")
+              for k in ("w", "b")),
+            p["dt_bias"], p["A_log"], p["D"], ssm_state)
+    h = _ssm_head_axis(H)
+    row, ch = ("data", None, None), ("data", None, h)
+    state = ("data", h, None, None)
+    d_in, K = cfg.d_inner, cfg.ssm_conv
+    y, st, tx, tB, tC = local_map(
+        _step_core, args,
+        (ch, row, row, ch, ch, row, row,
+         (None, h), (h,), (None, None), (None,), (None, None), (None,),
+         (h,), (h,), (h,), state),
+        (ch, state, ch, row, row),
+        ((b, 1, d_in), (b, H, P, N), (b, K - 1, d_in), (b, K - 1, N),
+         (b, K - 1, N)), site="ssm.step")
+    return _gate_norm_out(p, y, z, cfg), (st, (tx, tB, tC))

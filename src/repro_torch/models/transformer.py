@@ -24,7 +24,7 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.meshctx import current_mesh, dtensor_scope
+from repro_torch.meshctx import assign, current_mesh, dtensor_scope
 from repro_torch.models import ssm
 from repro_torch.models.attention import (attention_block, decode_attention,
                                           decode_cross_attention,
@@ -124,13 +124,14 @@ def ssm_block_step(p, x, st, tails, cfg):
 
 def _ssm_step_into(p, x, cache, idx, cfg):
     """One decode step of an ssm block whose state and conv tails sit at
-    `idx` of the stacked cache; writes them back in place."""
+    `idx` of the stacked cache; writes them back in place (on a DTensor
+    cache, each rank its own shard)."""
     st = cache["ssm"][idx]
     tails = tuple(t[idx] for t in cache["conv"])
     x, st_new, tails_new = ssm_block_step(p, x, st, tails, cfg)
-    st.copy_(st_new)
+    assign(st, st_new)
     for dst, src in zip(tails, tails_new):
-        dst.copy_(src)
+        assign(dst, src)
     return x
 
 

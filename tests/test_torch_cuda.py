@@ -973,3 +973,89 @@ def test_train_step_on_train_state_shardings_equals_the_plain_step(
     assert launches[0] == launches[1] and launches[0][0] > 0
     for a, b in zip(tree_leaves(plain), tree_leaves(dstate)):
         assert torch.equal(a, b.to_local())
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "smollm-360m",
+                                  "deepseek-moe-16b"])
+def test_decode_on_a_dtensor_cache_equals_the_plain_decode(card_mesh, arch):
+    """The smoke config's prefill and 4 greedy decode steps on the (1, 1)
+    cuda mesh, DTensor params and a cache laid out by
+    `cache_sharding_tree`, against the plain decode: every step's logits
+    and tokens bit-equal, every cache leaf laid out as
+    `cache_sharding_tree` says, the kernels launched by the prefill
+    alike."""
+    import dataclasses
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.launch import sharding as S
+    from repro_torch.meshctx import is_dtensor
+    from repro_torch.models import model as M
+    from repro_torch.optim.tree import tree_leaves, tree_map
+    from repro_torch.serve.steps import grow_cache
+    cfg = reduce_for_smoke(get_config(arch))
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    plain = M.init_params(cfg, 0)
+    dparams = tree_map(lambda t, s: distribute_tensor(t.clone(), s.mesh,
+                                                      s.placements),
+                       plain, S.param_sharding_tree(cfg, card_mesh,
+                                                    M.param_shapes(cfg)))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 96), generator=gen,
+                           device="cuda")
+    runs = []
+    for params in (plain, dparams):
+        before = (fops.flash_attention.launches, sops.ssd_scan.launches)
+        with torch.inference_mode():
+            logits, cache = M.prefill(params, cfg, {"tokens": prompt})
+            launched = (fops.flash_attention.launches - before[0],
+                        sops.ssd_scan.launches - before[1])
+            cache = grow_cache(cache, 128)
+            out = [logits[:, -1:]]
+            for i in range(4):
+                tok = torch.argmax(out[-1][:, -1], dim=-1)[:, None]
+                if is_dtensor(tok):
+                    tok = tok.full_tensor()
+                logits, cache = M.decode_step(params, cfg, tok, cache,
+                                              96 + i)
+                out.append(logits)
+        runs.append(([o.full_tensor() if is_dtensor(o) else o
+                      for o in out], cache, launched))
+    (p_out, _, p_l), (d_out, d_cache, d_l) = runs
+    assert p_l == d_l and sum(p_l) > 0
+    for a, b in zip(p_out, d_out):
+        assert torch.equal(a, b)
+    want = S.cache_sharding_tree(cfg, card_mesh, d_cache)
+    for t, w in zip(tree_leaves(d_cache), tree_leaves(want)):
+        assert tuple(t.placements) == tuple(w.placements)
+
+
+def test_custom_ops_fake_outputs_match_a_real_launch(cuda_device):
+    """The fake implementations of `repro_torch::flash_fwd` and
+    `repro_torch::ssd_scan` (the dry-run's route for a fake tensor) give
+    the shapes and dtypes a real launch of each kernel gives, and the ops
+    on real CUDA tensors equal the wrappers' kernel calls."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(2, 200, 4, 80, generator=g, device="cuda")
+               .bfloat16() for _ in range(3))
+    real = fops.flash_forward(q, k, v, causal=True)
+    op = torch.ops.repro_torch.flash_fwd(q, k, v, True)
+    for a, b in zip(real, op):
+        assert torch.equal(a, b)
+    b_, s, h, p, n = 2, 256, 4, 64, 16
+    x = torch.randn(b_, s, h, p, generator=g, device="cuda").bfloat16()
+    dt = torch.rand(b_, s, h, generator=g, device="cuda") * 0.1
+    A = -torch.linspace(1.0, 2.0, h, device="cuda")
+    B = torch.randn(b_, s, n, generator=g, device="cuda").bfloat16()
+    D = torch.ones(h, device="cuda")
+    real_ssd = sops.ssd_scan(x, dt, A, B, B, D, chunk=128)
+    with FakeTensorMode() as mode:
+        fq, fk, fv = (mode.from_tensor(t) for t in (q, k, v))
+        fake = fops.flash_forward(fq, fk, fv, causal=True)
+        fargs = [mode.from_tensor(t) for t in (x, dt, A, B, B, D)]
+        fake_ssd = sops.ssd_scan(*fargs, chunk=128)
+    for got, want in zip((*fake, *fake_ssd), (*real, *real_ssd)):
+        assert (got.shape, got.dtype, got.device) == (want.shape, want.dtype,
+                                                      want.device)

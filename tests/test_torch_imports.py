@@ -53,7 +53,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "train.step", "train.trainer", "launch.train",
                  "examples.sst_streaming", "examples.quickstart",
                  "examples.train_lm", "meshctx", "launch.mesh",
-                 "launch.sharding", "launch.shapes"):
+                 "launch.sharding", "launch.shapes", "launch.dryrun",
+                 "roofline.analysis", "roofline.trace_analysis"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
