@@ -27,6 +27,14 @@
    streaming: 3 chunks of `run_with_diagnostics` into an `SstStream`
    teed to an `AsyncBpWriter`, with the SST example's four reducers live
    and inline, equal to the post-hoc replay of the teed series exactly;
+   before the main path's files go, the read side of the paper's I/O on
+   them (`run_tools`, host tools as in the JAX package): jbpls of the
+   series and the checkpoint with no `data.*` byte read (in process and
+   as a subprocess), jbpfsck --deep of the checkpoint with each block the
+   shuffle kernel wrote accounted for on disk, one jbpd daemon serving
+   both to 4 concurrent shm clients (boxes bit-identical to `BpReader`
+   and to the checkpointed tensors still on the card), jbprepack of the
+   series onto one aggregator (verified) and jbpstat over a journal;
 5. holds the flash attention and SSD scan kernels against their plain
    versions at the serving paths' shapes (and a few others), and times
    flash at each serving shape beside SDPA; holds the flash kernel's lse
@@ -605,11 +613,13 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
     d1 = timed("diagnostics_s", lambda: diagnostics(restored))
 
     # the series reads back equal to what was stored
+    mesh_vars = []
     with BpReader(series_path) as reader:
         for step, diag in written.items():
             for name, arr in diag.items():
                 if isinstance(arr, np.ndarray):
                     var = f"/data/{step}/meshes/{name.replace('/', '_')}"
+                    mesh_vars.append(var)
                     if not (reader.read_var(step, var) == arr).all():
                         raise AssertionError(f"{var} reads back different")
         x_back = reader.read_var(dump_step,
@@ -641,10 +651,350 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
             par["steps"], "diag_calls": diag_calls, "parallel_io": par,
             "device_bytes": dev_bytes, "restored_from": at,
             "original_io": original_io, "state": restored,
-            "shuffled_leaves": shuffled_leaves,
+            "shuffled_leaves": shuffled_leaves, "saved": flat_saved,
+            "dump_step": dump_step, "mesh_vars": mesh_vars,
             "counts_start": {k: d0[k] for k in d0 if k.startswith("count/")},
             "counts_end": {k: d1[k] for k in d1 if k.startswith("count/")},
             "ionizations": d1["ionizations"]}
+
+
+def _shuffled_blocks_on_disk(ckpt: pathlib.Path, flat: dict, torch) -> dict:
+    """Walk the checkpoint's JBPC block headers (no decompression) and
+    account for each block the device shuffled. The save hands each tensor
+    leaf (rank >= 1, not bfloat16) to the engine whole, one chunk, and
+    `shuffle_blocks` shuffles each of its codec blocks whose length is a
+    multiple of the item size (items wider than a byte). On disk such a
+    block is either blosc (whose decode unshuffles, so the encoder clears
+    the flag and the bytes equal the host path's) or, when LZ did not pay,
+    stored raw with FLAG_PRESHUFFLED. Any other block must carry no flag.
+    Returns the counts: launches (leaves with a block to shuffle), the
+    blocks they shuffled, and how each is stored."""
+    from repro_torch.core import compression as C
+    from repro_torch.core.bp_engine import BpReader
+    n = {"launches": 0, "device_shuffled": 0, "preshuffled_flag": 0,
+         "blosc": 0, "blocks": 0}
+    with BpReader(ckpt) as r:
+        step = r.valid_steps()[-1]
+        for name, leaf in flat.items():
+            var = f"state/{name}"
+            dev_leaf = (isinstance(leaf, torch.Tensor) and leaf.ndim > 0
+                        and leaf.dtype != torch.bfloat16)
+            chunks = list(r.iter_chunks(step, var))
+            if dev_leaf:
+                if len(chunks) != 1:
+                    raise AssertionError(f"{var}: {len(chunks)} chunks for "
+                                         f"a device leaf, expected 1")
+                isz = leaf.element_size()
+                nbytes = leaf.numel() * isz
+                spans = [(i, min(i + C.DEFAULT_BLOCK, nbytes))
+                         for i in range(0, max(nbytes, 1), C.DEFAULT_BLOCK)]
+                shuf = [isz > 1 and hi > lo and (hi - lo) % isz == 0
+                        for lo, hi in spans]
+                n["launches"] += any(shuf)
+            for ch in chunks:
+                heads = list(C.iter_block_headers(
+                    r._read_payload(ch.agg, ch.file_offset, ch.nbytes)))
+                n["blocks"] += len(heads)
+                if not dev_leaf:
+                    if any(h[3] for h in heads):
+                        raise AssertionError(f"{var}: a host leaf's block "
+                                             f"carries flags")
+                    continue
+                if [h[4] for h in heads] != [hi - lo for lo, hi in spans]:
+                    raise AssertionError(f"{var}: block sizes differ from "
+                                         f"the device's {C.DEFAULT_BLOCK}-"
+                                         f"byte spans")
+                for (_o, cid, _i, flags, _raw, _c), s in zip(heads, shuf):
+                    flagged = bool(flags & C.FLAG_PRESHUFFLED)
+                    codec = C.CODEC_NAMES[cid]
+                    if not s:
+                        if flagged:
+                            raise AssertionError(f"{var}: FLAG_PRESHUFFLED "
+                                                 f"on a block the device "
+                                                 f"did not shuffle")
+                        continue
+                    n["device_shuffled"] += 1
+                    if flagged and codec == "none":
+                        n["preshuffled_flag"] += 1
+                    elif codec == "blosc" and not flagged:
+                        n["blosc"] += 1
+                    else:
+                        raise AssertionError(
+                            f"{var}: a device-shuffled block stored as "
+                            f"{codec} with flags 0x{flags:02x}: its decode "
+                            f"would not unshuffle it")
+    return n
+
+
+#: the jbpd clients of the tools phase, each reading every box
+TOOLS_CLIENTS = 4
+
+
+def run_tools(torch, dev, workdir: pathlib.Path, res: dict) -> dict:
+    """The read side of the paper's I/O over the main path's own outputs:
+    jbpls (O(metadata): no `data.*` byte read), jbpfsck --deep over the
+    device-compressed checkpoint (each block the shuffle kernel wrote
+    accounted for on disk), one jbpd daemon serving both series to 4
+    concurrent clients (boxes bit-identical to `BpReader` and, for the
+    checkpoint, to the leaves still on the card), jbprepack of the
+    diagnostics-and-dump series to one aggregator (verified), and jbpstat
+    over a metrics journal of a small series of its own. These tools are
+    host code, as in the JAX package: the card enters through what they
+    read. Any failed check raises."""
+    import io
+    import threading
+
+    import numpy as np
+    from repro_torch.core.bp_engine import BpReader, BpWriter, EngineConfig
+    from repro_torch.core.darshan import MONITOR
+    from repro_torch.core.metrics import METRICS, summarize_cell
+    from repro_torch.serve.jbpd import JbpDaemon, SeriesClient, SeriesServer
+    from repro_torch.tools import jbpfsck, jbpls, jbprepack, jbpstat
+
+    t0_phase = time.perf_counter()
+    out = {"t": {}}
+    diag = workdir / "diag.bp4"
+    ckpts = sorted(p.parent for p in (workdir / "ckpt").rglob("md.idx"))
+    if len(ckpts) != 1:
+        raise AssertionError(f"expected one checkpoint series, got {ckpts}")
+    ckpt = ckpts[0]
+    flat = res["saved"]
+
+    def tool(main, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        return rc, buf.getvalue(), time.perf_counter() - t0
+
+    # --- jbpls: in process, then once as a subprocess (startup included).
+    # The checkpoint's variables are its leaves; the series' are what its
+    # steps committed, among them every mesh and the dumped positions
+    xvar = f"/data/{res['dump_step']}/particles/e/position/x"
+    put = {"ckpt": {f"state/{k}" for k in flat}}
+    with BpReader(diag) as r:
+        put["diag"] = set()
+        for s in r.valid_steps():
+            put["diag"] |= set(r.var_names(s))
+    missing = (set(res["mesh_vars"]) | {xvar}) - put["diag"]
+    if missing:
+        raise AssertionError(f"the series lacks {sorted(missing)}")
+    out["jbpls"] = {}
+    for key, path in (("diag", diag), ("ckpt", ckpt)):
+        MONITOR.reset()
+        rc, text, secs = tool(jbpls.main, [str(path), "-l", "-L", "--json",
+                                           "--io-report"])
+        doc = json.loads(text)
+        if rc != 0:
+            raise AssertionError(f"jbpls {path}: exit {rc}")
+        if set(doc["variables"]) != put[key]:
+            raise AssertionError(f"jbpls {key}: listed "
+                                 f"{sorted(set(doc['variables']) ^ put[key])}"
+                                 f" differently from what was put")
+        files = MONITOR.report()["files"]
+        data_read = sum(c.get("POSIX_BYTES_READ", 0)
+                        for f, c in files.items()
+                        if pathlib.Path(f).name.startswith("data."))
+        meta_read = sum(c.get("POSIX_BYTES_READ", 0)
+                        for f, c in files.items()
+                        if not pathlib.Path(f).name.startswith("data."))
+        if data_read != 0:
+            raise AssertionError(f"jbpls read {data_read} bytes of "
+                                 f"{key}'s data.* files")
+        out["jbpls"][key] = {"s": secs, "variables": len(doc["variables"]),
+                             "steps": len(doc["steps"]),
+                             "data_bytes_read": data_read,
+                             "metadata_bytes_read": meta_read}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tools.jbpls", str(diag), "-l",
+         "-L", "--json", "--io-report"], env=env, capture_output=True,
+        text=True, timeout=300)
+    out["t"]["jbpls_subprocess_s"] = time.perf_counter() - t0
+    if proc.returncode != 0 or (set(json.loads(proc.stdout)["variables"])
+                                != put["diag"]):
+        raise AssertionError(f"jbpls subprocess: exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    # where a CLI's start-up goes: torch, which core/compression.py
+    # imports at module level, then the rest of the tool's imports
+    proc = subprocess.run(
+        [sys.executable, "-c", "import json, time\n"
+         "t0 = time.perf_counter()\nimport torch\n"
+         "t1 = time.perf_counter()\nimport repro_torch.tools.jbpls\n"
+         "print(json.dumps([t1 - t0, time.perf_counter() - t1]))"],
+        env=env, check=True, capture_output=True, text=True, timeout=300)
+    out["t"]["torch_import_s"], out["t"]["tools_import_s"] = json.loads(
+        proc.stdout)
+
+    # --- jbpfsck --deep over the device-compressed checkpoint
+    rc, text, secs = tool(jbpfsck.main, [str(ckpt), "--deep", "--json"])
+    doc = json.loads(text)
+    if rc != 0 or doc["issues"]:
+        raise AssertionError(f"jbpfsck --deep {ckpt}: exit {rc}, issues "
+                             f"{doc['issues']}")
+    out["t"]["jbpfsck_deep_s"] = secs
+    disk = _shuffled_blocks_on_disk(ckpt, flat, torch)
+    if disk["launches"] != res["shuffled_leaves"]:
+        raise AssertionError(f"{disk['launches']} leaves with blocks to "
+                             f"shuffle, the main path counted "
+                             f"{res['shuffled_leaves']} launches")
+    out["jbpfsck"] = dict(disk, steps=len(doc["committed_steps"]))
+
+    # --- jbpd: one daemon over both series, 4 concurrent shm clients
+    with BpReader(diag) as r:
+        nx = tuple(r.var_info(res["dump_step"], xvar)["shape"])[0]
+    boxes = [(str(diag), res["dump_step"], xvar, (0,), (nx // 8,)),
+             (str(diag), res["dump_step"], xvar, (nx // 16,), (nx // 8,)),
+             (str(diag), res["dump_step"], xvar, (nx // 2,), (nx // 4,))]
+    # electron positions ([C]) and ion velocities ([C, 3]) of the state
+    picked = ["electrons/.x", "ions/.v"]
+    ck_step = res["restored_from"]
+    for k in picked:
+        shape = tuple(flat[k].shape)
+        off = (shape[0] // 3,) + (0,) * (len(shape) - 1)
+        ext = (shape[0] // 8,) + shape[1:]
+        boxes.append((str(ckpt), ck_step, f"state/{k}", off, ext))
+    errors, got = [], {}
+
+    def client(i, address):
+        """Client i reads every box, in an order rotated by i, so that
+        concurrent clients meet on the same chunks."""
+        try:
+            got[i] = {}
+            clients = {}
+            for k in range(len(boxes)):
+                j = (k + i) % len(boxes)
+                series, step, var, off, ext = boxes[j]
+                if series not in clients:
+                    clients[series] = SeriesClient(address, series)
+                t0 = time.perf_counter()
+                got[i][j] = clients[series].read_var(step, var, off, ext)
+                got[i][j, "s"] = time.perf_counter() - t0
+            for c in clients.values():
+                c.close()
+        except BaseException as e:      # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    MONITOR.reset()
+    server = SeriesServer([diag, ckpt], cache_bytes=2 << 30)
+    t0 = time.perf_counter()
+    with JbpDaemon(server, socket_path=workdir / "jbpd.sock").start() as d:
+        threads = [threading.Thread(target=client, args=(i, d.address))
+                   for i in range(TOOLS_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600.0)
+        wall = time.perf_counter() - t0
+        if errors or len(got) != TOOLS_CLIENTS:
+            raise AssertionError(f"jbpd clients failed: {errors!r}")
+        with SeriesClient(d.address, str(diag)) as c:
+            st = c.stats()
+    # every box against BpReader, and the checkpoint's against the card
+    box_bytes = []
+    with BpReader(diag) as rd, BpReader(ckpt) as rc_:
+        for j, (series, step, var, off, ext) in enumerate(boxes):
+            want = (rd if series == str(diag) else rc_).read_var(
+                step, var, off, ext)
+            for i in range(TOOLS_CLIENTS):
+                box = got[i][j]
+                if box.dtype != want.dtype or box.tobytes() != \
+                        want.tobytes():
+                    raise AssertionError(f"jbpd box {j} of client {i} "
+                                         f"differs from BpReader")
+            box_bytes.append(want.nbytes)
+            if series == str(ckpt):
+                leaf = flat[var[len("state/"):]]
+                sl = tuple(slice(o, o + e) for o, e in zip(off, ext))
+                if not torch.equal(torch.from_numpy(want).to(dev),
+                                   leaf[sl]):
+                    raise AssertionError(f"jbpd box of {var} differs from "
+                                         f"the tensor on the card")
+    reads = [got[i][j, "s"] for i in range(TOOLS_CLIENTS)
+             for j in range(len(boxes))]
+    out["jbpd"] = {"clients": TOOLS_CLIENTS, "boxes": len(boxes),
+                   "leaves": picked, "wall_s": wall,
+                   "box_read_s_mean": statistics.mean(reads),
+                   "box_read_s_max": max(reads),
+                   "box_bytes": box_bytes,
+                   "cache": st["cache"],
+                   "counters": {k: v for k, v in st["counters"].items()
+                                if k.startswith("SERVICE_")}}
+
+    # --- jbprepack: the diagnostics-and-dump series onto one aggregator
+    dst = workdir / "repacked.bp4"
+    rc, text, secs = tool(jbprepack.main, [str(diag), str(dst), "-w", "1",
+                                           "--parallel", "8", "--workers",
+                                           "8", "--verify"])
+    if rc != 0 or "bit-identical" not in text:
+        raise AssertionError(f"jbprepack: exit {rc}: {text}")
+    with BpReader(dst) as r:
+        if len(r.layout()) != 1:
+            raise AssertionError(f"repacked onto {len(r.layout())} "
+                                 f"subfiles, not 1")
+    out["t"]["jbprepack_verify_s"] = secs
+    out["jbprepack"] = text.strip().splitlines()[1].strip()
+    shutil.rmtree(dst, ignore_errors=True)
+
+    # --- jbpstat over the journal of a small series of its own
+    jdir = workdir / "journal.bp4"
+    x = got[0][0][:1 << 20]
+    METRICS.enable()
+    try:
+        w = BpWriter(jdir, 4, EngineConfig(aggregators=2, codec="blosc",
+                                           workers=2, profiling=True))
+        per = x.shape[0] // 4
+        for s in range(3):
+            w.begin_step(s)
+            for rk in range(4):
+                w.put("p/x", x[rk * per:(rk + 1) * per],
+                      global_shape=(4 * per,), offset=(rk * per,), rank=rk)
+            w.end_step()
+        w.close()
+        live = {ck: summarize_cell(c) for ck, c in METRICS.merged().items()}
+    finally:
+        METRICS.disable()
+    rc, text, secs = tool(jbpstat.main, [str(jdir), "--json"])
+    METRICS.reset()
+    ops = json.loads(text)["ops"]
+    if rc != 0 or {k: (v["count"], v["p99_s"]) for k, v in ops.items()} \
+            != {k: (v["count"], v["p99_s"]) for k, v in live.items()}:
+        raise AssertionError(f"jbpstat: exit {rc}, its percentiles differ "
+                             f"from the live registry's")
+    out["jbpstat"] = {"exit": rc, "ops": len(ops), "s": secs}
+    out["t"]["phase_s"] = time.perf_counter() - t0_phase
+    return out
+
+
+def print_tools(tl: dict, smi: str):
+    t = tl["t"]
+    ls = tl["jbpls"]
+    fk = tl["jbpfsck"]
+    jd = tl["jbpd"]
+    print(json.dumps({"tools": tl}, default=str))
+    print(f"tools phase ({smi}): {t['phase_s']:.1f} s; jbpls in-process "
+          f"diag {ls['diag']['s']:.3f} s ({ls['diag']['variables']} "
+          f"variables, {ls['diag']['data_bytes_read']} data.* bytes read, "
+          f"{ls['diag']['metadata_bytes_read']} metadata bytes), ckpt "
+          f"{ls['ckpt']['s']:.3f} s ({ls['ckpt']['data_bytes_read']} data.* "
+          f"bytes); as a subprocess {t['jbpls_subprocess_s']:.3f} s (import "
+          f"torch {t['torch_import_s']:.3f} s, then the tool's other "
+          f"imports {t['tools_import_s']:.3f} s)")
+    print(f"  jbpfsck --deep {t['jbpfsck_deep_s']:.3f} s, clean: "
+          f"{fk['device_shuffled']} blocks from {fk['launches']} "
+          f"shuffle_blocks launches on disk = {fk['preshuffled_flag']} "
+          f"stored raw with FLAG_PRESHUFFLED + {fk['blosc']} blosc "
+          f"({fk['blocks']} blocks in all)")
+    print(f"  jbpd: {jd['clients']} clients x {jd['boxes']} boxes in "
+          f"{jd['wall_s']:.3f} s, a box read {jd['box_read_s_mean']:.4f} s "
+          f"mean, {jd['box_read_s_max']:.4f} s max; cache {jd['cache']}; "
+          f"{jd['counters']}; bit-identical to BpReader and to the card "
+          f"({', '.join(jd['leaves'])})")
+    print(f"  jbprepack 16 ranks x 4 aggregators -> 1 with --verify "
+          f"{t['jbprepack_verify_s']:.3f} s: {tl['jbprepack']}; jbpstat "
+          f"exit {tl['jbpstat']['exit']}, {tl['jbpstat']['ops']} ops equal "
+          f"to the live registry")
 
 
 def _subfile_bytes(path: pathlib.Path) -> dict:
@@ -3290,9 +3640,20 @@ def main() -> int:
     try:
         torch.cuda.reset_peak_memory_stats()
         res = run_main_path(torch, dev, workdir)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        # the read side on the main path's own series and checkpoint,
+        # before they go: host tools, so its own counts stay at 0
+        for fn in counters.values():
+            fn.launches = 0
+        tools = run_tools(torch, dev, workdir, res)
+        tools["launches"] = {name: fn.launches
+                             for name, fn in counters.items()}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    del res["saved"]
+    if any(tools["launches"].values()):
+        raise AssertionError(f"the host tools launched kernels: "
+                             f"{tools['launches']}")
     expect_dep = 2 * res["steps"] + 3 * res["diag_calls"]
     if launches["deposit_cic"] != expect_dep:
         raise AssertionError(f"deposit launches {launches['deposit_cic']} "
@@ -3321,6 +3682,7 @@ def main() -> int:
           f"ionizations {res['ionizations']:.0f}; counts "
           f"{res['counts_start']} -> {res['counts_end']}")
     print(f"launches on the main path: {launches}")
+    print_tools(tools, smi)
     print_original_io(res["original_io"])
     m = par["manager"]
     print(f"parallel I/O ({par['writers']} writers, {par['transport']}; "

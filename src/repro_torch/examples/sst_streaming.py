@@ -3,14 +3,11 @@ diagnostics flow producer->consumer through the SST-style engine, a
 `repro_torch.insitu` ReducerSet analyzes them live while the simulation
 keeps stepping, and a tee persists the same snapshots to a BP4 series. At
 the end the post-hoc replay over `BpReader` must match the live reduction
-EXACTLY (the insitu parity guarantee). Runs on the CUDA device by default.
+EXACTLY (the insitu parity guarantee), and `jbpls` inspects the series
+from metadata alone. Runs on the CUDA device by default.
 
     PYTHONPATH=src python -m repro_torch.examples.sst_streaming
     PYTHONPATH=src python -m repro_torch.examples.sst_streaming --device cpu
-
-The JAX package's example ends with a `jbpls` listing of the teed series;
-the port has no copy of that tool (the on-disk format is byte-identical,
-so the JAX package's `python -m repro.tools.jbpls` lists this series).
 """
 import argparse
 import pathlib
@@ -25,6 +22,7 @@ from repro_torch.insitu import (FieldEnergy, Moments, ReducerSet,
                                 SpeciesCount, assert_parity, attach_reducers,
                                 reduce_posthoc)
 from repro_torch.pic.simulation import init_sim, run_with_diagnostics
+from repro_torch.tools import jbpls
 
 
 def make_reducers(cfg) -> ReducerSet:
@@ -77,8 +75,10 @@ def main(argv=None) -> dict:
     if not n_D[-1] < n_D[0]:
         raise AssertionError("neutrals should deplete")
     print(f"\nstreamed {len(n_e)} steps in-situ; neutral depletion "
-          f"{n_D[0]:.0f} -> {n_D[-1]:.0f}; live == post-hoc (exact)")
-    print(f"teed series: {out}")
+          f"{n_D[0]:.0f} -> {n_D[-1]:.0f}; live == post-hoc (exact)\n")
+
+    print("jbpls (metadata-only listing of the teed series):")
+    jbpls.main([str(out), "-l", "-L"])
     return res
 
 

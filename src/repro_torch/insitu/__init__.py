@@ -8,9 +8,8 @@ The port's own copy of the JAX package's `insitu` (numpy-only):
   * `repro_torch.insitu.runner` — the same reducers run live over an
     `SstStream` or post-hoc over a `BpReader`, with an exact-parity
     guarantee.
-The metadata-only listing tool (`jbpls`) is not part of the port: the
-on-disk format is byte-identical, so the JAX package's tool reads a port
-series as it is.
+  * `repro_torch.tools.jbpls` — the metadata-only listing of a series
+    (O(metadata), zero `data.*` reads).
 """
 from repro_torch.insitu.reducers import (FieldEnergy, Histogram, Moments,
                                    PhaseSpace2D, Reducer, ReducerSet,

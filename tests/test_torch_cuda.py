@@ -583,6 +583,68 @@ def test_parallel_device_checkpoint_payloads_equal_the_serial_engines(
         assert parallel[key] == payload, key
 
 
+def test_tools_read_a_device_compressed_checkpoint(cuda_device, tmp_path,
+                                                   capsys):
+    """The read side over a checkpoint of CUDA tensors saved with
+    device_compress: jbpfsck --deep comes back clean and each block the
+    shuffle kernel wrote is on disk as blosc (its decode unshuffles) or,
+    where LZ did not pay, raw with FLAG_PRESHUFFLED; jbpls lists it with no
+    data.* byte read; a jbpd box read equals the tensors on the card."""
+    import json
+
+    from repro_torch.ckpt.checkpoint import save_checkpoint
+    from repro_torch.core import compression as C
+    from repro_torch.core.bp_engine import BpReader, EngineConfig
+    from repro_torch.core.darshan import MONITOR
+    from repro_torch.serve.jbpd import JbpDaemon, SeriesClient, SeriesServer
+    from repro_torch.tools import jbpfsck, jbpls
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(21)
+    # noise does not compress: 3 whole 1 MiB blocks and a 20-byte tail,
+    # all shuffled and stored raw; the ramp compresses: 2 blosc blocks
+    state = {"noise": torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                    ((3 << 18) + 5,), dtype=torch.int32,
+                                    generator=g, device=cuda_device),
+             "ramp": torch.arange(1 << 19, dtype=torch.float32,
+                                  device=cuda_device).reshape(-1, 4) / 7}
+    before = bops.shuffle_blocks.launches
+    path = save_checkpoint(tmp_path / "ckpt", state, 3, n_io_ranks=4,
+                           engine_config=EngineConfig(aggregators=2,
+                                                      codec="blosc"),
+                           device_compress=True)
+    assert bops.shuffle_blocks.launches == before + 2
+    assert jbpfsck.main([str(path), "--deep"]) == 0
+    capsys.readouterr()
+    kinds = {}
+    with BpReader(path) as r:
+        step = r.valid_steps()[-1]
+        for name in state:
+            (ch,) = r.iter_chunks(step, f"state/{name}")
+            kinds[name] = [
+                (C.CODEC_NAMES[cid], bool(flags & C.FLAG_PRESHUFFLED))
+                for _o, cid, _i, flags, _r, _c in C.iter_block_headers(
+                    r._read_payload(ch.agg, ch.file_offset, ch.nbytes))]
+    assert kinds == {"noise": [("none", True)] * 4,
+                     "ramp": [("blosc", False)] * 2}
+    MONITOR.reset()
+    assert jbpls.main([str(path), "-l", "-L", "--json"]) == 0
+    listed = json.loads(capsys.readouterr().out)["variables"]
+    assert set(listed) == {"state/noise", "state/ramp"}
+    assert sum(c.get("POSIX_BYTES_READ", 0)
+               for f, c in MONITOR.report()["files"].items()
+               if "data." in f) == 0
+    sock = tmp_path / "d.sock"
+    with JbpDaemon(SeriesServer([path]), socket_path=sock).start() as d:
+        with SeriesClient(d.address, path) as c:
+            for name, off, ext in (("noise", (1000,), (600_000,)),
+                                   ("ramp", (100, 0), (70_000, 4))):
+                box = c.read_var(step, f"state/{name}", off, ext)
+                sl = tuple(slice(o, o + e) for o, e in zip(off, ext))
+                assert torch.equal(torch.from_numpy(box).to(cuda_device),
+                                   state[name][sl])
+            assert c.stats()["counters"]["SERVICE_SHM_BYTES"] > 0
+
+
 # -------------------------------------------------------------------- training
 @pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("causal", [True, False])

@@ -54,7 +54,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "examples.sst_streaming", "examples.quickstart",
                  "examples.train_lm", "meshctx", "launch.mesh",
                  "launch.sharding", "launch.shapes", "launch.dryrun",
-                 "roofline.analysis", "roofline.trace_analysis"):
+                 "roofline.analysis", "roofline.trace_analysis",
+                 "tools._runner", "tools.jbpls", "tools.jbpfsck",
+                 "tools.jbprepack", "tools.jbpstat", "tools.jbpdxt",
+                 "tools.jbpd", "tools.jbplint", "serve.jbpd",
+                 "analysis.framework", "analysis.checkers",
+                 "examples.io_tuning"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
