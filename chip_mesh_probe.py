@@ -1,20 +1,47 @@
-"""Where the mesh phase of `chip_smoke.py` can put its 4 ranks: one card
-cannot hold 4 nccl ranks, so the ranks are a gloo group. This script
-asks the card, with 4 spawned ranks that all take cuda:0:
+"""Why a DTensor train step of 4 gloo ranks sharing one card does not
+finish, the reason `chip_smoke.py`'s mesh phase keeps its ranks' tensors
+on the host (`MESH_DEVICE`).
 
-1. whether gloo runs the collectives DTensor's redistributions need
-   (`all_gather_into_tensor`, `reduce_scatter_tensor`,
-   `all_to_all_single`, and `all_reduce`, `broadcast`, `scatter`) on
-   CUDA tensors through the c10d API;
-2. whether a DTensor train step of the smoke smollm-360m config on a
-   (2, 2) ("data", "model") cuda mesh over that group finishes within
-   STEP_WAIT_S seconds (each rank prints when its state is laid out and
-   when its step is done).
+One card cannot hold 4 nccl ranks, so the ranks would be a gloo group
+whose tensors lie on cuda:0. This script runs the smallest cases of that
+in 4 spawned ranks, once a variant, with the diagnostics that tell a wait
+apart from an error or a crash:
 
-Run on the GPU machine: `python3 chip_mesh_probe.py` (about 2.5 minutes
-when the step does not finish). Prints one JSON line a part and exits 0
-either way: it reports, it decides nothing.
+- `TORCH_DISTRIBUTED_DEBUG=DETAIL`: the process-group wrapper checks each
+  collective's kind and shapes across the ranks before it runs, so a
+  mismatch is raised as an error that names it;
+- `faulthandler`: every thread's Python stack, the autograd engine's
+  device thread's too, is dumped to `<out>/<variant>.rank<r>.stacks`
+  every STACK_EVERY_S seconds until the rank finishes, and on a fatal
+  signal;
+- a log of each collective the rank issues (its kind, shape, dtype and
+  group size, and the thread that issued it) and of each DTensor
+  redistribution, in `<out>/<variant>.rank<r>.log`.
+
+The variants: `funcol:<op>`, one functional collective of those
+DTensor's redistributions issue (`_functional_collectives`, waited on)
+on a CUDA tensor, or `funcol:c10d_all_gather`, the c10d
+`all_gather_into_tensor` beside it; `step`, a train step of the smoke
+smollm-360m config on a (2, 2) ("data", "model") cuda mesh; `detail`, the
+same step with the DETAIL wrapper, which only this variant runs.
+
+What it showed on an H100 with torch 2.11 (PERF.md §7): the functional
+all-gather (`_c10d_functional.all_gather_into_tensor`, which reaches the
+backend's `allgather_into_tensor_coalesced`) kills every rank with
+SIGSEGV; the c10d `all_gather_into_tensor` and the other functional
+collectives complete; the step's ranks die at its first all-gather (the
+embedding's ZeRO-3 gather), and under DETAIL raise "Backend gloo does not
+support allgather_into_tensor_coalesced" there instead.
+
+Run on the GPU machine: `python3 chip_mesh_probe.py [variant ...] [--out
+DIR]` (all variants by default; the files under DIR, `build/mesh_probe`
+by default; about STEP_WAIT_S seconds a variant that does not finish).
+Prints one JSON line a variant (with each rank's exit code: None while
+it still ran at the deadline) and exits 0 either way: it reports, it
+decides nothing.
 """
+import argparse
+import collections
 import json
 import multiprocessing as mp
 import os
@@ -25,85 +52,162 @@ import time
 import traceback
 
 ROOT = pathlib.Path(__file__).resolve().parent
-STEP_WAIT_S = 120
+STEP_WAIT_S = 100
+FUNCOL_WAIT_S = 45
+STACK_EVERY_S = 20
 WORLD = 4
+FUNCOL = ("all_gather_tensor", "c10d_all_gather", "all_reduce",
+          "reduce_scatter_tensor", "all_to_all_single", "broadcast")
+VARIANTS = tuple(f"funcol:{op}" for op in FUNCOL) + ("step", "detail")
 
 
-def _collectives(rank, store, q):
+def _trace_collectives(log):
+    """Log every functional collective and DTensor redistribution this
+    process issues, with the issuing thread, to `log` (flushed a line)."""
+    import threading
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    import torch.distributed.tensor._redistribute as red
+    n = [0]
+
+    def note(what):
+        th = threading.current_thread()
+        n[0] += 1
+        log.write(f"{n[0]} {time.perf_counter():.4f} "
+                  f"[{th.name}:{threading.get_ident()}] {what}\n")
+        log.flush()
+
+    def wrap(mod, name):
+        real = getattr(mod, name)
+
+        def fn(*a, **kw):
+            t = a[0] if a else None
+            shape = (tuple(t.shape), str(t.dtype)) if hasattr(t, "shape") \
+                else type(t).__name__
+            note(f"{mod.__name__.rsplit('.', 1)[-1]}.{name} {shape}")
+            return real(*a, **kw)
+        setattr(mod, name, fn)
+
+    for name in ("all_reduce", "all_gather_tensor", "reduce_scatter_tensor",
+                 "all_to_all_single", "broadcast", "all_reduce_coalesced",
+                 "all_gather_tensor_autograd",
+                 "reduce_scatter_tensor_autograd"):
+        if hasattr(funcol, name):
+            wrap(funcol, name)
+    for name in ("all_reduce", "all_gather_into_tensor",
+                 "reduce_scatter_tensor", "broadcast", "all_to_all_single",
+                 "barrier", "all_gather_object", "scatter"):
+        wrap(dist, name)
+    real = red.redistribute_local_tensor
+
+    def redistribute(local, cur, tgt, *a, **kw):
+        if cur.placements != tgt.placements:
+            note(f"redistribute {cur.placements} -> {tgt.placements} "
+                 f"{tuple(local.shape)} {local.dtype}")
+        return real(local, cur, tgt, *a, **kw)
+    for mod in list(sys.modules.values()):
+        if getattr(mod, "__name__", "").startswith("torch.distributed.tensor") \
+                and getattr(mod, "redistribute_local_tensor", None) is real:
+            mod.redistribute_local_tensor = redistribute
+    return note
+
+
+def _funcol(op, note):
+    """One functional collective on a CUDA tensor, waited on: 'ok' and
+    the sum of its output, or the error."""
     import torch
     import torch.distributed as dist
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                            world_size=WORLD)
-    dev = torch.device("cuda", 0)
-    x = torch.full((8,), float(rank + 1), device=dev)
+    import torch.distributed._functional_collectives as funcol
+    group = dist.group.WORLD
+    x = torch.arange(8, dtype=torch.float32, device="cuda") + dist.get_rank()
+
+    def c10d_all_gather():
+        out = torch.empty(8 * WORLD, device="cuda")
+        dist.all_gather_into_tensor(out, x)
+        return out
     calls = {
-        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
-            torch.empty(8 * WORLD, device=dev), x),
-        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
-            torch.empty(8 // WORLD, device=dev), x),
-        "all_to_all_single": lambda: dist.all_to_all_single(
-            torch.empty(8, device=dev), x),
-        "all_reduce": lambda: dist.all_reduce(x.clone()),
-        "broadcast": lambda: dist.broadcast(x.clone(), 0),
-        "scatter": lambda: dist.scatter(
-            torch.empty(8, device=dev),
-            [x.clone() for _ in range(WORLD)] if rank == 0 else None, src=0)}
-    res = {}
-    for name, fn in calls.items():
-        try:
-            fn()
-            torch.cuda.synchronize()
-            res[name] = "ok"
-        except Exception as e:                       # noqa: BLE001 — told
-            res[name] = f"{type(e).__name__}: {str(e)[:200]}"
-        dist.barrier()
-    q.put((rank, res))
-    dist.destroy_process_group()
+        "all_gather_tensor": lambda: funcol.all_gather_tensor(x, 0, group),
+        "c10d_all_gather": c10d_all_gather,
+        "reduce_scatter_tensor": lambda: funcol.reduce_scatter_tensor(
+            x, "sum", 0, group),
+        "all_reduce": lambda: funcol.all_reduce(x, "sum", group),
+        "all_to_all_single": lambda: funcol.all_to_all_single(
+            x, None, None, group),
+        "broadcast": lambda: funcol.broadcast(x, 0, group)}
+    note(f"phase: {op} issued")
+    try:
+        out = funcol.wait_tensor(calls[op]())
+        torch.cuda.synchronize()
+        res = f"ok {out.sum().item()}"
+    except Exception as e:                           # noqa: BLE001 — told
+        res = f"{type(e).__name__}: {str(e)[:300]}"
+    note(f"phase: {op} {res}")
+    return res
 
 
-def _step(rank, store, q):
+def _rank(rank, store, variant, out, q):
+    """One rank of `variant`: its result (or traceback) goes to `q`, its
+    collectives to its log, its stacks to its stacks file."""
+    import faulthandler
     sys.path.insert(0, str(ROOT / "src"))
+    if variant == "detail":
+        os.environ["TORCH_DISTRIBUTED_DEBUG"] = "DETAIL"
     import torch
     import torch.distributed as dist
-    from torch.distributed.tensor import distribute_tensor
-    from repro_torch.configs.base import get_config, reduce_for_smoke
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.optim.tree import tree_map
-    from repro_torch.train.state import (init_train_state,
-                                         train_state_shardings)
-    from repro_torch.train.step import make_train_step
+    name = variant.replace(":", "_")
+    stacks = open(out / f"{name}.rank{rank}.stacks", "w")
+    log = open(out / f"{name}.rank{rank}.log", "w")
+    faulthandler.enable(file=stacks, all_threads=True)
+    faulthandler.dump_traceback_later(STACK_EVERY_S, repeat=True,
+                                      file=stacks)
     try:
+        note = _trace_collectives(log)
+        from torch.distributed.tensor import distribute_tensor
+        from repro_torch.configs.base import get_config, reduce_for_smoke
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.optim.adamw import AdamWConfig
+        from repro_torch.optim.tree import tree_map
+        from repro_torch.train import step as step_mod
+        from repro_torch.train.state import (init_train_state,
+                                             train_state_shardings)
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", init_method=f"file://{store}",
                                 rank=rank, world_size=WORLD)
+        if variant.startswith("funcol:"):
+            q.put((rank, _funcol(variant.split(":", 1)[1], note)))
+            return
         cfg = reduce_for_smoke(get_config("smollm-360m"))
         mesh = make_mesh((2, 2), ("data", "model"), device_type="cuda")
         state = tree_map(lambda t, s: distribute_tensor(
             t, s.mesh, s.placements, src_data_rank=None),
             init_train_state(cfg, 0), train_state_shardings(cfg, mesh))
-        print(f"rank {rank}: state laid out", flush=True)
+        note("phase: state laid out")
         g = torch.Generator().manual_seed(0)
         batch = {k: torch.randint(0, cfg.vocab_size, (4, 64), generator=g)
                  .cuda() for k in ("tokens", "labels")}
         t0 = time.perf_counter()
-        _, m = make_train_step(cfg, AdamWConfig())(state, batch)
+        _, m = step_mod.make_train_step(cfg, AdamWConfig())(state, batch)
         torch.cuda.synchronize()
-        print(f"rank {rank}: stepped", flush=True)
+        note("phase: stepped")
         q.put((rank, {"loss": float(m["loss"]),
                       "step_s": time.perf_counter() - t0}))
     except Exception:                                # noqa: BLE001 — told
-        q.put((rank, traceback.format_exc()[-2000:]))
+        q.put((rank, traceback.format_exc()[-3000:]))
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        log.flush()
+        stacks.flush()
 
 
-def _pool(target, wait_s: float) -> dict:
-    """Run `target` in WORLD spawned ranks; their results, or what came
-    within `wait_s` (the others are killed)."""
+def _pool(variant: str, wait_s: float, out: pathlib.Path
+          ) -> tuple[dict, list]:
+    """Run the variant in WORLD spawned ranks: their results, or what came
+    within `wait_s`, and each rank's exit code then (None: still running;
+    it is killed)."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     store = os.path.join(tempfile.mkdtemp(), "store")
-    procs = [ctx.Process(target=target, args=(r, store, q))
+    procs = [ctx.Process(target=_rank, args=(r, store, variant, out, q))
              for r in range(WORLD)]
     for p in procs:
         p.start()
@@ -116,28 +220,64 @@ def _pool(target, wait_s: float) -> dict:
         pass
     for p in procs:
         p.join(timeout=5)
+    codes = [p.exitcode for p in procs]
+    for p in procs:
         if p.is_alive():
             p.kill()
             p.join()
-    return res
+    return res, codes
+
+
+def _summary(variant: str, logs: pathlib.Path) -> dict:
+    """Each rank's collectives by thread, its last lines, and the first
+    collective at which the ranks' sequences differ."""
+    seqs, out = {}, {}
+    for r in range(WORLD):
+        path = logs / f"{variant.replace(':', '_')}.rank{r}.log"
+        lines = path.read_text().splitlines() if path.exists() else []
+        calls = [ln.split(" ", 2)[2] for ln in lines if " phase: " not in ln]
+        seqs[r] = [c.split("] ", 1)[1] for c in calls]
+        threads = collections.Counter(c.split("]", 1)[0] + "]"
+                                      for c in calls)
+        out[f"rank{r}"] = {"n": len(calls), "threads": dict(threads),
+                           "last": lines[-4:]}
+    n = min(len(s) for s in seqs.values())
+    first = next((i for i in range(n)
+                  if len({seqs[r][i] for r in seqs}) > 1), None)
+    out["first_difference"] = (None if first is None else
+                               {r: seqs[r][first] for r in seqs})
+    out["first_difference_at"] = first
+    return out
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(
+        description="Run 4 gloo ranks on cuda:0 through the variants and "
+                    "report each rank's result, exit code and collectives.")
+    ap.add_argument("variants", nargs="*", default=list(VARIANTS))
+    ap.add_argument("--out", type=pathlib.Path,
+                    default=ROOT / "build" / "mesh_probe")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_mesh_probe: no CUDA device is visible", file=sys.stderr)
         return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    out = args.out.resolve()
+    out.mkdir(parents=True, exist_ok=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
-    t0 = time.perf_counter()
-    res = _pool(_collectives, 120)
-    print(json.dumps({"gloo_cuda_collectives": res,
-                      "s": time.perf_counter() - t0}), flush=True)
-    t0 = time.perf_counter()
-    res = _pool(_step, STEP_WAIT_S)
-    print(json.dumps({"gloo_cuda_dtensor_step": res,
-                      "finished_ranks": len(res), "wait_s": STEP_WAIT_S,
-                      "s": time.perf_counter() - t0}), flush=True)
+          f"{torch.cuda.get_device_name(0)}; kernel build "
+          f"{_build.build_all():.1f} s", flush=True)
+    for variant in args.variants:
+        t0 = time.perf_counter()
+        wait = FUNCOL_WAIT_S if variant.startswith("funcol:") else STEP_WAIT_S
+        res, codes = _pool(variant, wait, out)
+        print(json.dumps({"variant": variant, "finished_ranks": len(res),
+                          "results": res, "exit_codes": codes,
+                          "wait_s": wait,
+                          "s": time.perf_counter() - t0,
+                          "trace": _summary(variant, out)}), flush=True)
     return 0
 
 

@@ -2678,7 +2678,7 @@ def run_roofline(torch, dev, smi: str) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.launch.dryrun import run_cell
     from repro_torch.models import model as M
-    from repro_torch.roofline.analysis import HBM_BW, build_report
+    from repro_torch.roofline.analysis import build_report
     from repro_torch.roofline.trace_analysis import analyze
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.serve.steps import make_decode_step, make_prefill_step
@@ -2713,7 +2713,7 @@ def run_roofline(torch, dev, smi: str) -> dict:
                          n_devices=1, counts=c, cfg=cfg, kind=kind, seq=Sp,
                          batch=B)
         unfused_ms = 1e3 * max(r.compute_s, r.memory_s, r.collective_s)
-        io_ms = 1e3 * c["io_bytes_per_device"] / HBM_BW
+        io_ms = 1e3 * r.memory_lower_s
         lower_ms = max(1e3 * r.compute_s, io_ms, 1e3 * r.collective_s)
         dev_ms = prof[phase]["device_ms"]
         if not dev_ms:
@@ -2743,6 +2743,7 @@ def run_roofline(torch, dev, smi: str) -> dict:
         "status": cell["status"], "trace_s": cell["trace_s"],
         "compute_ms": 1e3 * rr["compute_s"],
         "memory_ms": 1e3 * rr["memory_s"],
+        "memory_lower_ms": 1e3 * rr["memory_lower_s"],
         "collective_ms": 1e3 * rr["collective_s"],
         "dominant": rr["dominant"],
         "collective_op_counts": rr["collective_op_counts"],
@@ -2765,7 +2766,8 @@ def run_roofline(torch, dev, smi: str) -> dict:
     c = out["production_cell"]
     print(f"dry-run cell qwen1.5-0.5b decode_32k single ({c['n_devices']} "
           f"fake ranks): {c['status']}, compute {c['compute_ms']:.4f} ms, "
-          f"memory {c['memory_ms']:.4f} ms, collective "
+          f"memory {c['memory_ms']:.4f} ms (lower "
+          f"{c['memory_lower_ms']:.4f}), collective "
           f"{c['collective_ms']:.4f} ms ({c['dominant']}), collectives "
           f"{c['collective_op_counts']}, args {c['argument_gib']:.2f} GiB, "
           f"temp {c['temp_gib']:.2f} GiB; traced in {c['trace_s']:.1f} s")
@@ -2928,11 +2930,12 @@ def run_trainer(torch, dev, workdir: pathlib.Path, full=None) -> dict:
 #: the mesh phase's layout: smollm's 15 heads do not divide the `model`
 #: axis of 2, so attention takes the head_dim layout
 MESH_SHAPE, MESH_AXES, MESH_RANKS = (2, 2), ("data", "model"), 4
-#: where the mesh phase's 4 gloo ranks keep their tensors, decided once
-#: (PERF.md §6, PR 19; `chip_mesh_probe.py`): NCCL refuses two ranks on one
-#: card; gloo runs the c10d collectives on CUDA tensors of 4 ranks sharing
-#: it, but a DTensor train step on such a cuda mesh made no progress, so
-#: the ranks keep their tensors on the host
+#: where the mesh phase's 4 gloo ranks keep their tensors (PERF.md §7;
+#: `chip_mesh_probe.py`): NCCL refuses two ranks on one card, and torch
+#: 2.11's gloo kills every rank with SIGSEGV at the functional all-gather
+#: of a CUDA tensor, which each DTensor gather to Replicate issues (its
+#: c10d all-gather and the other functional collectives complete), so the
+#: ranks keep their tensors on the host
 MESH_DEVICE = "cpu"
 #: CPU threads a rank of the mesh job takes (4 ranks on the 8 cores)
 MESH_RANK_THREADS = 2

@@ -43,7 +43,8 @@ from repro_torch.launch.mesh import make_production_mesh, mesh_summary
 from repro_torch.launch.sharding import attn_layout
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.roofline.analysis import NODE_GPUS, build_report
-from repro_torch.roofline.trace_analysis import TraceCounter, summarize
+from repro_torch.roofline.trace_analysis import (TraceCounter, io_bytes,
+                                                 summarize)
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 from repro_torch.train.step import make_train_step
 
@@ -145,7 +146,8 @@ def _local_bytes(tree) -> float:
 
 def trace_cell(cfg, shape_name: str, mesh, *, tuning=None) -> dict:
     """Trace one step of `cfg` at `shape_name` on `mesh` with fake inputs:
-    (counts of `trace_analysis.summarize`, memory analysis, seconds)."""
+    (counts of `trace_analysis.summarize` with the step's
+    `io_bytes_per_device`, memory analysis, seconds)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     spec = SH.input_specs(cfg, shape_name, mesh)
     fn = step_fn_for(cfg, spec["kind"], shape_name, tuning)
@@ -163,7 +165,8 @@ def trace_cell(cfg, shape_name: str, mesh, *, tuning=None) -> dict:
             out = fn(*args)
         out_bytes = _local_bytes(out[1] if spec["kind"] == "decode"
                                  else out)
-    counts = summarize(counter)
+        io = io_bytes(args, out)
+    counts = {**summarize(counter), "io_bytes_per_device": io}
     alias = (_local_bytes(args[1]) if spec["kind"] == "decode" else
              _local_bytes(args[0]) if grad else 0.0)
     mem = {"argument_bytes": arg_bytes,
@@ -206,6 +209,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *, tuning=None,
               f"trace={res['trace_s']:.1f}s "
               f"compute={r.compute_s*1e3:.3f}ms "
               f"memory={r.memory_s*1e3:.3f}ms "
+              f"(lower {r.memory_lower_s*1e3:.3f}ms) "
               f"collective={r.collective_s*1e3:.3f}ms "
               f"dominant={r.dominant} "
               f"useful={r.useful_flops_ratio:.3f} "
@@ -243,7 +247,8 @@ def rereport(prev: dict) -> dict:
               "collective_traffic_by_kind": r["collective_by_kind"],
               "collective_op_counts": r["collective_op_counts"],
               "product_flops_per_device": r["product_flops_per_device"],
-              "collective_traffic_cross_node": cross}
+              "collective_traffic_cross_node": cross,
+              "io_bytes_per_device": r.get("io_bytes_per_device", 0.0)}
     rep = build_report(arch=prev["arch"], shape=prev["shape"],
                        mesh_name=prev["mesh"], n_devices=r["n_devices"],
                        counts=counts, cfg=get_config(prev["arch"]),

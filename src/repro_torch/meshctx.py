@@ -137,16 +137,18 @@ def local_map(fn, args, in_specs, out_specs, out_shapes, *, site: str = "",
     partial sum (a contraction over a dim sharded there): each rank's
     part is one slice of a stack sharded over those axes, and the stack's
     sum is the output, so its backward hands each rank the whole
-    gradient. The sum is a `Partial` over those axes, which DTensor
-    reduces where a reader needs it whole (each reader: a normed residual
-    read by three projections is reduced three times)."""
+    gradient. The sum is reduced once, right here, in the output's dtype
+    (one all-reduce, as XLA issues for the reference's row-parallel
+    products), and comes back `Replicate` over those axes: every reader
+    sees it whole, and the all-reduce's gradient passes through. A size-1
+    axis is no partial sum and is not reduced."""
     if not any(is_dtensor(a) for a in args):
         # an alias of each input that takes a gradient: its uses inside
         # `fn` sum their gradients there first, as they do in the local
         # tensor of a DTensor, so a bf16 gradient rounds alike on both
         return fn(*(a.view_as(a) if getattr(a, "requires_grad", False)
                     else a for a in args))
-    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map as _lm
     mesh = next(a.device_mesh for a in args if is_dtensor(a))
     names = mesh.mesh_dim_names
@@ -179,6 +181,8 @@ def local_map(fn, args, in_specs, out_specs, out_shapes, *, site: str = "",
               device_mesh=mesh, redistribute_inputs=True)(*args)
     if partial:
         out = out.sum(dim=0)
+        out = out.redistribute(mesh, [Replicate() if q.is_partial() else q
+                                      for q in out.placements])
     rec = getattr(_STATE, "record", None)
     if rec is not None and site:
         rec.extend((f"{site}.in{i}", pl) for i, (a, pl) in

@@ -106,7 +106,8 @@ def _head_proj(p, x, heads=None):
 def _out_proj(p, o, axes=(None, None)):
     """o: [B,S,H,hd] -> [B,S,d], bf16 out. On DTensors the product is local
     to each rank's batch rows and its slice of the heads or head_dim
-    (`axes`), a partial sum over `model` where that is split."""
+    (`axes`), its partial sum all-reduced over `model` where that is
+    split."""
     if is_dtensor(o) or is_dtensor(p["w"]):
         h, k = axes
         return local_map(
@@ -169,9 +170,12 @@ def _take_heads(t, H: int, Hkv: int, Hp: int):
     kv_map[h] = min(h // (H // Hkv), Hkv - 1) (the reference's `take`).
     kv_map does not decrease, so this is each kv head broadcast over its
     run of query heads, concatenated: views and one copy, whose backward
-    (sums and slices) keeps a DTensor's layout."""
+    (sums and slices) keeps a DTensor's layout. A DTensor's kv heads are
+    gathered whole over `model` first, one all-gather as XLA issues for
+    the reference's `take` (slicing them sharded gathers once a slice)."""
     G = H // Hkv
     runs = [min(h // G, Hkv - 1) for h in range(Hp)]
+    t = shard_hint(t, BATCH, None, None, None, site="attn.take")
     B, S, _, D = t.shape
     return torch.cat([t[:, :, j:j + 1].expand(B, S, runs.count(j), D)
                       for j in range(Hkv) if runs.count(j)], dim=2)

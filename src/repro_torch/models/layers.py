@@ -76,7 +76,8 @@ def _sharded_linear(p, x):
     whole over `data` (the ZeRO-3 gather) and split over `model` as it
     lies: column-parallel (d_out over `model`) gives the output's features
     over `model`; row-parallel (d_in over `model`) reads x's features over
-    `model` and gives a partial sum over it. The layout XLA's SPMD
+    `model` and all-reduces its partial sum over it once, in bf16, so the
+    output is whole over `model`. The layout XLA's SPMD
     partitioner gives the reference's einsums: DTensor's own choice for a
     matmul of a batch-sharded x and an FSDP-sharded weight sometimes
     gathers the batch instead, and every rank then repeats its rows'
@@ -164,9 +165,8 @@ def _sharded_embed(table, ids):
     `meshctx.local_map`: each rank keeps its rows of the vocab (over
     `model`; `d` gathered whole, as a ZeRO-3 gather of the weight) and
     looks up the ids of its batch shard that fall in them, zeros for the
-    others; the sum over `model` (one rank holds each row) is the gathered
-    row. The rows are summed in fp32, the exact widening of the bf16
-    values."""
+    others; the all-reduce over `model` (one rank holds each row, so the
+    bf16 sum is exact) is the gathered row."""
     mesh = table.device_mesh
     names = mesh.mesh_dim_names
     if not is_dtensor(ids):
@@ -179,13 +179,12 @@ def _sharded_embed(table, ids):
     def lookup(t, i):
         loc = i - lo
         ok = (loc >= 0) & (loc < rows)
-        return (t[torch.where(ok, loc, 0)] * ok[..., None].to(t.dtype)).float()
+        return t[torch.where(ok, loc, 0)] * ok[..., None].to(t.dtype)
 
-    out = local_map(lookup, (table, ids), (("model", None), (BATCH, None)),
-                    ((BATCH, None, None),),
-                    ((*ids.shape, table.shape[1]),),
-                    partial=("model",) if by_vocab else ())
-    return out.to(COMPUTE_DTYPE)
+    return local_map(lookup, (table, ids), (("model", None), (BATCH, None)),
+                     ((BATCH, None, None),),
+                     ((*ids.shape, table.shape[1]),),
+                     partial=("model",) if by_vocab else ())
 
 
 def _replicated(t, mesh):

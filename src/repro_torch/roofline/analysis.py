@@ -8,6 +8,8 @@ one NVIDIA H100 SXM a device.
     collective term = per-device traffic of the groups within one node /
                       NVLink bandwidth + that of the groups that span
                       nodes / InfiniBand bandwidth
+    memory lower    = per-device bytes of the step's inputs and outputs /
+                      HBM bandwidth
 
 The constants are the H100 SXM's data-sheet peaks (NVIDIA H100 Tensor
 Core GPU datasheet, SXM5 column; DGX H100 user guide for the node); the
@@ -23,7 +25,7 @@ bound of the compute time; the memory term divides the unfused bytes of
 `trace_analysis` (each op's inputs and outputs), an upper bound of the
 traffic, so the largest term is no lower bound of the step's time. The
 bytes of the step's inputs and outputs (`trace_analysis.io_bytes`) give
-the memory term's lower bound.
+the memory term's lower bound, reported beside it (`memory_lower_s`).
 """
 from __future__ import annotations
 
@@ -69,6 +71,10 @@ class RooflineReport:
     product_flops_per_device: float = 0.0   # the products alone
     #: the part of collective_bytes_per_device whose groups span nodes
     collective_cross_node_bytes_per_device: float = 0.0
+    #: the step's inputs and outputs once, and their time at HBM_BW: the
+    #: lower bound of the memory term (memory_s is the unfused upper one)
+    io_bytes_per_device: float = 0.0
+    memory_lower_s: float = 0.0
 
     def to_dict(self):
         return dataclasses.asdict(self)
@@ -116,7 +122,9 @@ def build_report(*, arch, shape, mesh_name, n_devices, counts, cfg, kind,
         dominant=dominant, model_flops=mf, useful_flops_ratio=ratio,
         mfu_bound=mfu_bound,
         product_flops_per_device=a.get("product_flops_per_device", 0.0),
-        collective_cross_node_bytes_per_device=cross)
+        collective_cross_node_bytes_per_device=cross,
+        io_bytes_per_device=a.get("io_bytes_per_device", 0.0),
+        memory_lower_s=a.get("io_bytes_per_device", 0.0) / HBM_BW)
     if mem_stats is not None:
         rep.arg_bytes_per_device = float(mem_stats["argument_bytes"])
         rep.temp_bytes_per_device = float(mem_stats["temp_bytes"])

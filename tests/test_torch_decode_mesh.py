@@ -67,7 +67,7 @@ from repro_torch.serve.steps import (grow_cache, make_decode_step,
                                      make_prefill_step)
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
-from test_torch_mesh_step import _nest, _np_params  # noqa: E402
+from test_torch_mesh_step import _nest, _np_params, _routes  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 AXES = ("data", "model")
@@ -197,54 +197,6 @@ def _run(case, params, inputs, mesh=None):
     greedy = [(t.full_tensor() if meshctx.is_dtensor(t) else t).numpy()
               for t in greedy]
     return full, _leaves_np(cache), faults, greedy
-
-
-class _routes:
-    """`moe.route` recording each call's top-k experts [B,S,k] and the
-    margin of its k-th probability over the next [B,S] (`path` None:
-    returned by `calls` and `margins`), or replaying those saved at `path`
-    on the rank's batch rows (over `data`), with the weights renormalised
-    from the call's own probabilities at those experts; `calls` then
-    holds the experts the rank's own top-k chose."""
-
-    def __init__(self, path=None, rows=None):
-        self.path, self.rows, self.calls, self.margins = path, rows, [], []
-
-    def __enter__(self):
-        from repro_torch.models import moe
-        self.saved = real = moe.route
-        replay = (None if self.path is None else
-                  iter(np.load(self.path)["routes"]))
-
-        def route(p, x, cfg):
-            probs, top_w, top_e = real(p, x, cfg)
-            self.calls.append(top_e.numpy())
-            if replay is None:
-                top = torch.sort(probs, dim=-1, descending=True).values
-                self.margins.append(
-                    (top[..., cfg.top_k - 1] - top[..., cfg.top_k]).numpy())
-                return probs, top_w, top_e
-            top_e = torch.from_numpy(
-                next(replay)[self.rows, :x.shape[1]]).to(top_e)
-            top_w = torch.gather(probs, -1, top_e)
-            top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True),
-                                            1e-9)
-            return probs, top_w, top_e
-        moe.route = route
-        return self
-
-    def __exit__(self, *a):
-        from repro_torch.models import moe
-        moe.route = self.saved
-        return False
-
-    def save(self, path):
-        """The recorded calls as one [calls, B, S, k] array, each padded to
-        the longest S (a prefill's; a decode call's S is 1)."""
-        s = max(c.shape[1] for c in self.calls)
-        np.savez(path, routes=np.stack([
-            np.pad(c, ((0, 0), (0, s - c.shape[1]), (0, 0)))
-            for c in self.calls]))
 
 
 def _params(case, d):

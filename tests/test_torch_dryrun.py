@@ -53,6 +53,10 @@ _CELL = textwrap.dedent("""
     assert r["dominant"] in ("compute", "memory", "collective")
     assert out["memory_analysis"]["argument_bytes"] > 0
     assert out["mesh_info"]["n_devices"] == int(sys.argv[2])
+    # the memory term's lower bound (inputs and outputs once) beside the
+    # unfused one
+    assert 0 < r["io_bytes_per_device"] <= r["hbm_bytes_per_device"]
+    assert r["memory_lower_s"] == r["io_bytes_per_device"] / 3.35e12
     # every group of a production mesh spans nodes (16-wide axes)
     cross = r["collective_cross_node_bytes_per_device"]
     assert cross == r["collective_bytes_per_device"] > 0

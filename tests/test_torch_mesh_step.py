@@ -22,18 +22,25 @@ the params, which a first Adam step moves by about
 lr * (0.56 sign(g) + wd p), so a sign flip of a tiny gradient moves one
 by up to 1.12 lr the other way: the mean change within 0.05 lr, the
 largest within 1.2 lr (the step parity of `tests/test_torch_trainer.py`).
-Where the two references are further apart than that, which a moe
-token near a routing tie makes happen (another expert, a gradient
-elsewhere), each number is held to twice their distance instead (the
-noise floor, as the train step's noise floor on the card is 2); for the
-dense and hybrid cases the references must agree within the tolerance
-themselves.
+The mesh is held to that against the one device. A moe token near a
+routing tie picks another expert on another sum order (another expert,
+a gradient elsewhere), so the moe case records each MoE call's top-k
+experts on the one device, the forward's and remat's recompute's, and
+replays them on the mesh (`_routes`; the weights are the mesh's own
+probabilities at those experts); the mesh's own top-k experts equal the
+one device's on every token whose k-th probability clears the next by
+more than 2e-2. Against the JAX side, which routes freely, where the two
+references are further apart than the tolerance, each number is held to
+twice their distance instead (the noise floor, as the train step's noise
+floor on the card is 2); for the dense and hybrid cases the references
+must agree within the tolerance themselves.
 
 A forward under `meshctx.recording_hints` checks that each hinted
 activation's placements are `to_placements` of the reference's spec at
 that site, the spec built from the JAX package's own `_attn_axes` and
 `_ssm_head_axis` on the same mesh. No JAX in this process: the rank
 processes import this module."""
+import contextlib
 import dataclasses
 import json
 import os
@@ -169,10 +176,65 @@ def _step(case, state, batch):
     return out, {k: float(v) for k, v in m.items()}
 
 
+class _routes:
+    """`moe.route` recording each call's top-k experts [B,S,k] and the
+    margin of its k-th probability over the next [B,S] (`path` None:
+    returned by `calls` and `margins`), or replaying those saved at `path`
+    on the rank's batch rows (over `data`), with the weights renormalised
+    from the call's own probabilities at those experts (their gradient
+    reaches the router as the top-k's does); `calls` then holds the
+    experts the rank's own top-k chose. A remat'd step's recompute calls
+    `route` again: it records, and replays, those calls too, in order."""
+
+    def __init__(self, path=None, rows=None):
+        self.path, self.rows, self.calls, self.margins = path, rows, [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.saved = real = moe.route
+        replay = (None if self.path is None else
+                  iter(np.load(self.path)["routes"]))
+
+        def route(p, x, cfg):
+            probs, top_w, top_e = real(p, x, cfg)
+            self.calls.append(top_e.numpy())
+            if replay is None:
+                top = torch.sort(probs.detach(), dim=-1,
+                                 descending=True).values
+                self.margins.append(
+                    (top[..., cfg.top_k - 1] - top[..., cfg.top_k]).numpy())
+                return probs, top_w, top_e
+            top_e = torch.from_numpy(
+                next(replay)[self.rows, :x.shape[1]]).to(top_e)
+            top_w = torch.gather(probs, -1, top_e)
+            top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True),
+                                            1e-9)
+            return probs, top_w, top_e
+        moe.route = route
+        return self
+
+    def __exit__(self, *a):
+        from repro_torch.models import moe
+        moe.route = self.saved
+        return False
+
+    def save(self, path):
+        """The recorded calls as one [calls, B, S, k] array, each padded to
+        the longest S (a prefill's; a decode call's S is 1)."""
+        s = max(c.shape[1] for c in self.calls)
+        np.savez(path, routes=np.stack([
+            np.pad(c, ((0, 0), (0, s - c.shape[1]), (0, 0)))
+            for c in self.calls]))
+
+
+
 # ------------------------------------------------------------- rank tasks
 def _rank_step(case, d):
-    """The case's step on the (2, 2) mesh: rank 0 returns the whole state
-    after it (numpy) and the metrics."""
+    """The case's step on the (2, 2) mesh: rank 0's result (the whole
+    state after it (numpy), the metrics, the params' placements and the
+    microbatches'; None on the other ranks), and where the routes are
+    replayed, the rank's first batch row and the experts its own top-k
+    chose at each MoE call."""
     d = pathlib.Path(d)
     mesh = tmesh.make_mesh((2, 2), AXES, device_type="cpu")
     gc = CASES[case][2].get("grad_compression", False)
@@ -183,15 +245,25 @@ def _rank_step(case, d):
                      state, sh)
     batch = {k: torch.from_numpy(v) for k, v in
              np.load(d / f"{case}.batch.npz").items()}
-    with meshctx.recording_hints() as rec:
+    routes = d / f"{case}.routes.npz"
+    rows, own = slice(None), None
+    if routes.exists():
+        n = len(batch["tokens"]) // mesh.size(0)
+        at = mesh.get_local_rank(0) * n
+        rows = slice(at, at + n)
+    with meshctx.recording_hints() as rec, \
+            (_routes(routes, rows) if routes.exists() else
+             contextlib.nullcontext()) as replay:
         out, m = _step(case, state, batch)
+    if replay is not None:
+        own = (rows.start, replay.calls)
     placements = sorted({str(tuple(t.placements)) for t in
                          ckpt.flatten_state(state["params"]).values()
                          if not isinstance(t, ckpt.Stacked)})
     micro = sorted({tuple(str(p) for p in pl) for site, pl in rec
                     if site == "step.microbatch"})
-    return (out, m, placements, micro) \
-        if torch.distributed.get_rank() == 0 else None
+    return ((out, m, placements, micro)
+            if torch.distributed.get_rank() == 0 else None), own
 
 
 def _rank_hints(case, d):
@@ -396,7 +468,15 @@ def _check(errors: dict, floor: dict):
 def test_step_on_2x2_matches_the_single_device_and_jax_steps(pool, inputs,
                                                              case):
     d, jax_run = inputs
-    got, gm, placements, micro = pool.run(_rank_step, case, str(d))[0]
+    moe = _cfg(case).family == "moe"
+    with (_routes() if moe else contextlib.nullcontext()) as rec:
+        one, om = _step(case, _state(case, d), {
+            k: torch.from_numpy(v) for k, v in
+            np.load(d / f"{case}.batch.npz").items()})
+    if moe:
+        rec.save(d / f"{case}.routes.npz")
+    ranks = pool.run(_rank_step, case, str(d))
+    got, gm, placements, micro = ranks[0][0]
     # the state really was laid out over both axes
     assert any("Shard" in p for p in placements)
     if CASES[case][2].get("microbatches", 1) > 1:
@@ -404,15 +484,28 @@ def test_step_on_2x2_matches_the_single_device_and_jax_steps(pool, inputs,
         want_pl = tuple(str(p) for p in S.to_placements(
             S.P("data"), tmesh.AbstractMesh((2, 2), AXES)))
         assert micro == [want_pl]
-    one, om = _step(case, _state(case, d), {
-        k: torch.from_numpy(v) for k, v in
-        np.load(d / f"{case}.batch.npz").items()})
     want, doc = jax_run.result(case)
     wm = doc["metrics"]
     floor = _errors(one, om, want, wm)
-    _check(_errors(got, gm, one, om), floor)
+    # the mesh and the one device share their routes (moe) or have none:
+    # the mesh is held to the tolerance itself against the one device
+    _check(_errors(got, gm, one, om), {k: 0.0 for k in TOL})
     _check(_errors(got, gm, want, wm), floor)
-    if CASES[case][0] != "deepseek-moe-16b":
+    if moe:
+        # the mesh's own routing: its top-k experts (as a set) equal the
+        # one device's on every token whose k-th probability clears the
+        # next by more than 2e-2, in the forward and in remat's recompute
+        clear = 0
+        for at, calls in (own for _, own in ranks):
+            assert len(calls) == len(rec.calls)
+            for mine, one_e, margin in zip(calls, rec.calls, rec.margins):
+                rows = slice(at, at + mine.shape[0])
+                ok = margin[rows] > 2e-2
+                assert (np.sort(mine, -1)[ok]
+                        == np.sort(one_e[rows], -1)[ok]).all()
+                clear += int(ok.sum())
+        assert clear > 0
+    else:
         # no routing: the references agree within the tolerance themselves
         _check(floor, {k: 0.0 for k in TOL})
     assert all(np.isfinite(v).all() for v in got.values())

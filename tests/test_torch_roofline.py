@@ -69,7 +69,8 @@ def test_build_report_arithmetic_with_the_h100_constants():
               "collective_traffic_per_device": 9e9,
               "collective_traffic_by_kind": {"all-reduce": 9e9},
               "collective_op_counts": {"all-reduce": 3.0},
-              "collective_traffic_cross_node": 5e8}
+              "collective_traffic_cross_node": 5e8,
+              "io_bytes_per_device": 4e9}
     r = A.build_report(arch="qwen1.5-0.5b", shape="prefill_32k",
                        mesh_name="single", n_devices=256, counts=counts,
                        cfg=cfg, kind="prefill", seq=32768, batch=32,
@@ -77,6 +78,7 @@ def test_build_report_arithmetic_with_the_h100_constants():
                                   "temp_bytes": 4e10})
     assert r.compute_s == 2e12 / 989e12
     assert r.memory_s == 1e10 / 3.35e12
+    assert (r.io_bytes_per_device, r.memory_lower_s) == (4e9, 4e9 / 3.35e12)
     assert r.collective_s == 8.5e9 / 450e9 + 5e8 / 50e9
     assert r.collective_cross_node_bytes_per_device == 5e8
     assert r.dominant == "collective"
@@ -259,45 +261,54 @@ def test_product_flops_match_xla_dots_outside_the_kernels(jax_dots, arch,
     assert abs(ours - theirs) <= 0.01 * theirs
 
 
-def test_collectives_of_a_1x4_decode_by_hand():
-    """The dense smoke config's decode on a (1, 4) mesh. The target is the
-    reference's: XLA all-reduces once a row-parallel product (the
-    attention output and the FFN down a layer, the vocab-parallel
-    embedding), 2L + 1 all-reduces of bf16 [B,1,d] and nothing else (the
-    weights lie whole over the absent data axis, the cache's heads over
-    `model`: nothing else moves). The port does not reach it yet
-    (ROADMAP Queue 3): the residual stream stays a partial sum over
-    `model`, which DTensor reduces at each reader, each RMS norm's sum of
-    the fp32 squares over d (a reduce-scatter of [B,1,d] and an
-    all-gather of the [B,1,1] means) and each projection that reads the
-    normed partial (an all-reduce of bf16 [B,1,d]: q, k, v, gate and up a
-    layer, then the unembedding), 2L + 1 pairs and 5L + 1 all-reduces.
-    So the counts lie between the target and that, and each op moves
-    what the hand reckoning gives for its shape. The 4 ranks share a
-    node: no traffic crosses one."""
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
+def test_collectives_of_a_1x4_decode_by_hand(shape):
+    """The dense smoke config's decode step, and its prefill, on a (1, 4)
+    mesh, against the collectives of the reference's HLO for the same
+    cell on 4 host devices (`HloAnalyzer`). XLA all-reduces once a
+    row-parallel product: the attention output and the FFN down a layer,
+    and the vocab-parallel embedding, 2L + 1 all-reduces of bf16 [B,S,d]
+    (the CPU build widens them to f32; the analyzer, and a GPU or TPU
+    build, count bf16). The prefill adds XLA's all-gather of k and of v a
+    layer for the reference's `take` of the kv heads, 2L of bf16
+    [B,S,Hkv,hd] (f32 in the CPU build, whose all-gathers the analyzer
+    does not narrow). Nothing else moves: the weights lie whole over the
+    absent data axis, the cache's heads over `model`. Read off the HLO of
+    this config: decode 9 all-reduces of 32,768 bytes; prefill 9 of
+    268,435,456 and 8 all-gathers of 536,870,912 (f32). The port issues
+    exactly these (`local_map` all-reduces a partial sum at its site;
+    `_take_heads` gathers the kv heads once), each moving what the ring
+    reckoning gives for its shape. The 4 ranks share a node: no traffic
+    crosses one."""
     cfg = reduce_for_smoke(get_config("qwen1.5-0.5b"))
-    B, d, L = SH.SHAPE_TABLE["decode_32k"].batch, cfg.d_model, cfg.n_layers
+    case = SH.SHAPE_TABLE[shape]
+    B, d, L = case.batch, cfg.d_model, cfg.n_layers
+    S = 1 if case.kind == "decode" else case.seq
     with DR.fake_world(4):
         mesh = make_mesh((1, 4), ("data", "model"), device_type="cpu")
-        spec = SH.input_specs(cfg, "decode_32k", mesh)
+        spec = SH.input_specs(cfg, shape, mesh)
         from torch.distributed.tensor.debug import CommDebugMode
         with FakeTensorMode(), DR._offsets_off_fake():
             args = [DR.fake_dtensors(a, s) for a, s in
                     zip(spec["args"], spec["in_shardings"])]
             with torch.no_grad(), CommDebugMode() as comm, \
                     TraceCounter() as tc:
-                M.decode_step(args[0], cfg, args[2], args[1], 100)
+                if case.kind == "decode":
+                    M.decode_step(args[0], cfg, args[2], args[1], 100)
+                else:
+                    M.prefill(args[0], cfg, args[1], q_chunk=1024,
+                              kv_chunk=1024)
     got = summarize(tc)
-    n = got["collective_op_counts"]
-    assert set(n) <= {"reduce-scatter", "all-gather", "all-reduce"}
-    assert 2 * L + 1 <= n["all-reduce"] <= 5 * L + 1
-    assert n.get("reduce-scatter", 0) == n.get("all-gather", 0) <= 2 * L + 1
-    assert sum(comm.get_comm_counts().values()) == sum(n.values())
+    want = {"all-reduce": 2 * L + 1}
+    if case.kind == "prefill":
+        want["all-gather"] = 2 * L
+    assert got["collective_op_counts"] == want
+    assert sum(comm.get_comm_counts().values()) == sum(want.values())
     f = 3 / 4                                   # (g - 1) / g
-    one_op = {"reduce-scatter": 4 * B * d * f, "all-gather": 4 * B * f,
-              "all-reduce": 2 * (2 * B * d) * f}
+    kv = 2 * B * S * cfg.n_kv_heads * cfg.resolved_head_dim
+    one_op = {"all-reduce": 2 * (2 * B * S * d) * f, "all-gather": kv * f}
     assert got["collective_traffic_by_kind"] == {
-        k: c * one_op[k] for k, c in n.items()}
+        k: c * one_op[k] for k, c in want.items()}
     assert got["collective_traffic_cross_node"] == 0.0
 
 
