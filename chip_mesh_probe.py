@@ -1,6 +1,8 @@
-"""Why a DTensor train step of 4 gloo ranks sharing one card does not
-finish, the reason `chip_smoke.py`'s mesh phase keeps its ranks' tensors
-on the host (`MESH_DEVICE`).
+"""Whether a DTensor train step of 4 gloo ranks sharing one card
+finishes: torch's gloo lacks one functional collective for CUDA tensors,
+and `launch.distributed.repair_gloo_cuda_gather` supplies it, so
+`chip_smoke.py`'s mesh phase can keep its ranks' tensors on the card
+(`MESH_DEVICE`).
 
 One card cannot hold 4 nccl ranks, so the ranks would be a gloo group
 whose tensors lie on cuda:0. This script runs the smallest cases of that
@@ -20,18 +22,29 @@ apart from an error or a crash:
 
 The variants: `funcol:<op>`, one functional collective of those
 DTensor's redistributions issue (`_functional_collectives`, waited on)
-on a CUDA tensor, or `funcol:c10d_all_gather`, the c10d
-`all_gather_into_tensor` beside it; `step`, a train step of the smoke
-smollm-360m config on a (2, 2) ("data", "model") cuda mesh; `detail`, the
-same step with the DETAIL wrapper, which only this variant runs.
+on a CUDA tensor, as torch has it, or `funcol:c10d_all_gather`, the c10d
+`all_gather_into_tensor` beside it; `repaired:all_gather_tensor`, the
+functional all-gather with the repair installed, byte for byte against
+the c10d gather (fp32, bf16, and the padded shards of a DTensor); `step`,
+a train step of the smoke smollm-360m config on a (2, 2) ("data",
+"model") cuda mesh from `make_mesh` (which installs the repair), with
+each rank's flash launches, and a kernel that raises, naming itself, for
+the other functional gathers (`TRIPWIRES`), so the log shows whether the
+step reaches one; `detail`, the same step with the DETAIL wrapper, which
+only this variant runs.
 
 What it showed on an H100 with torch 2.11 (PERF.md §7): the functional
 all-gather (`_c10d_functional.all_gather_into_tensor`, which reaches the
 backend's `allgather_into_tensor_coalesced`) kills every rank with
-SIGSEGV; the c10d `all_gather_into_tensor` and the other functional
-collectives complete; the step's ranks die at its first all-gather (the
-embedding's ZeRO-3 gather), and under DETAIL raise "Backend gloo does not
-support allgather_into_tensor_coalesced" there instead.
+SIGSEGV (exit -11), as torch has it; the c10d `all_gather_into_tensor`
+and the other functional collectives complete. With the repair the
+functional gather equals the c10d one byte for byte (fp32, bf16, padded
+DTensor shards), the smoke step completes on all 4 ranks with their
+params on cuda:0, 8 flash launches a rank and the same loss on each,
+and reaches no other functional gather (no tripwire fired). Under DETAIL
+a step whose backward reduce-scatters raised "Backend gloo does not
+support reduce_scatter_tensor_coalesced" there; the step reduces its
+gradients with all-reduces since, and completes under DETAIL too.
 
 Run on the GPU machine: `python3 chip_mesh_probe.py [variant ...] [--out
 DIR]` (all variants by default; the files under DIR, `build/mesh_probe`
@@ -58,7 +71,11 @@ STACK_EVERY_S = 20
 WORLD = 4
 FUNCOL = ("all_gather_tensor", "c10d_all_gather", "all_reduce",
           "reduce_scatter_tensor", "all_to_all_single", "broadcast")
-VARIANTS = tuple(f"funcol:{op}" for op in FUNCOL) + ("step", "detail")
+VARIANTS = tuple(f"funcol:{op}" for op in FUNCOL) + (
+    "repaired:all_gather_tensor", "step", "detail")
+#: the functional gathers besides the repaired one: a rank that reaches
+#: one raises, naming it, where gloo would kill it
+TRIPWIRES = ("all_gather_into_tensor_out", "all_gather_into_tensor_coalesced")
 
 
 def _trace_collectives(log):
@@ -145,6 +162,57 @@ def _funcol(op, note):
     return res
 
 
+def _repaired_gathers(note):
+    """With the repair installed, the functional all-gather of CUDA
+    tensors (fp32 [8], bf16 [6, 5], and the padded shards DTensor gathers
+    for a [10, 3] tensor split 4 ways) against the c10d gather of the
+    same inputs, byte for byte: 'ok equal' and the shapes, or what
+    differed."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from repro_torch.launch.distributed import repair_gloo_cuda_gather
+    repair_gloo_cuda_gather()
+    r, group = dist.get_rank(), dist.group.WORLD
+    g = torch.Generator().manual_seed(r)
+    cases = [torch.arange(8, dtype=torch.float32) + r,
+             torch.randn(6, 5, generator=g).to(torch.bfloat16)]
+    bad = []
+    for x in cases:
+        x = x.cuda()
+        got = funcol.wait_tensor(funcol.all_gather_tensor(x, 0, group))
+        want = torch.empty_like(got)
+        dist.all_gather_into_tensor(want, x)
+        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            bad.append(f"{tuple(x.shape)} {x.dtype}")
+    note("phase: lone gathers compared")
+    mesh = init_device_mesh("cuda", (WORLD,))
+    whole = torch.arange(30, dtype=torch.float32).reshape(10, 3).cuda()
+    t = distribute_tensor(whole, mesh, [Shard(0)])
+    if not torch.equal(t.full_tensor(), whole):
+        bad.append("padded [10, 3] full_tensor")
+    torch.cuda.synchronize()
+    return "ok equal" if not bad else f"DIFFER {bad}"
+
+
+def _tripwires(note):
+    """Register a CUDA kernel for each of TRIPWIRES that notes it and
+    raises: the step's log then shows whether DTensor reaches one."""
+    import torch
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+
+    def wire(name):
+        def fn(*a, **kw):
+            note(f"reached _c10d_functional.{name}")
+            raise RuntimeError(f"reached _c10d_functional.{name}")
+        return fn
+    for name in TRIPWIRES:
+        lib.impl(name, wire(name), "CUDA")
+    return lib
+
+
 def _rank(rank, store, variant, out, q):
     """One rank of `variant`: its result (or traceback) goes to `q`, its
     collectives to its log, its stacks to its stacks file."""
@@ -166,7 +234,7 @@ def _rank(rank, store, variant, out, q):
         from repro_torch.configs.base import get_config, reduce_for_smoke
         from repro_torch.launch.mesh import make_mesh
         from repro_torch.optim.adamw import AdamWConfig
-        from repro_torch.optim.tree import tree_map
+        from repro_torch.optim.tree import tree_leaves, tree_map
         from repro_torch.train import step as step_mod
         from repro_torch.train.state import (init_train_state,
                                              train_state_shardings)
@@ -176,7 +244,13 @@ def _rank(rank, store, variant, out, q):
         if variant.startswith("funcol:"):
             q.put((rank, _funcol(variant.split(":", 1)[1], note)))
             return
+        if variant.startswith("repaired:"):
+            q.put((rank, _repaired_gathers(note)))
+            return
+        from repro_torch.kernels.flash_attention import ops as fops
+        wires = _tripwires(note)                       # noqa: F841 — held
         cfg = reduce_for_smoke(get_config("smollm-360m"))
+        # make_mesh installs the repair: a gloo group on "cuda"
         mesh = make_mesh((2, 2), ("data", "model"), device_type="cuda")
         state = tree_map(lambda t, s: distribute_tensor(
             t, s.mesh, s.placements, src_data_rank=None),
@@ -190,7 +264,10 @@ def _rank(rank, store, variant, out, q):
         torch.cuda.synchronize()
         note("phase: stepped")
         q.put((rank, {"loss": float(m["loss"]),
-                      "step_s": time.perf_counter() - t0}))
+                      "step_s": time.perf_counter() - t0,
+                      "flash_launches": fops.flash_attention.launches,
+                      "params_on": str(tree_leaves(state["params"])[0]
+                                       .to_local().device)}))
     except Exception:                                # noqa: BLE001 — told
         q.put((rank, traceback.format_exc()[-3000:]))
     finally:
@@ -212,12 +289,16 @@ def _pool(variant: str, wait_s: float, out: pathlib.Path
     for p in procs:
         p.start()
     res, deadline = {}, time.monotonic() + wait_s
-    try:
-        while len(res) < WORLD:
-            r, v = q.get(timeout=max(0.1, deadline - time.monotonic()))
+    while len(res) < WORLD and time.monotonic() < deadline:
+        try:
+            r, v = q.get(timeout=1.0)
             res[r] = v
-    except Exception:                                # noqa: BLE001 — partial
-        pass
+        except Exception:                            # noqa: BLE001 — waits
+            # a rank that died will not answer: stop once all that have
+            # not answered are gone
+            if all(not p.is_alive() for i, p in enumerate(procs)
+                   if i not in res):
+                break
     for p in procs:
         p.join(timeout=5)
     codes = [p.exitcode for p in procs]

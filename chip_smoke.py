@@ -2930,13 +2930,12 @@ def run_trainer(torch, dev, workdir: pathlib.Path, full=None) -> dict:
 #: the mesh phase's layout: smollm's 15 heads do not divide the `model`
 #: axis of 2, so attention takes the head_dim layout
 MESH_SHAPE, MESH_AXES, MESH_RANKS = (2, 2), ("data", "model"), 4
-#: where the mesh phase's 4 gloo ranks keep their tensors (PERF.md §7;
-#: `chip_mesh_probe.py`): NCCL refuses two ranks on one card, and torch
-#: 2.11's gloo kills every rank with SIGSEGV at the functional all-gather
-#: of a CUDA tensor, which each DTensor gather to Replicate issues (its
-#: c10d all-gather and the other functional collectives complete), so the
-#: ranks keep their tensors on the host
-MESH_DEVICE = "cpu"
+#: where the mesh phase's 4 gloo ranks keep their tensors: on the card.
+#: NCCL refuses two ranks on one card, so they are a gloo group, whose
+#: functional all-gather of a CUDA tensor torch 2.11 lacks (PERF.md §7,
+#: `chip_mesh_probe.py`): `make_mesh` installs the port's
+#: (`launch.distributed.repair_gloo_cuda_gather`) for a gloo group on "cuda"
+MESH_DEVICE = "cuda"
 #: CPU threads a rank of the mesh job takes (4 ranks on the 8 cores)
 MESH_RANK_THREADS = 2
 
@@ -2994,12 +2993,15 @@ def mesh_rank_job(src: str, step: int, dst: str, full, dst_step: str,
     from repro_torch.ckpt.checkpoint import restore_sharded, save_checkpoint
     from repro_torch.core.darshan import CTR, MONITOR
     from repro_torch.data.pipeline import SyntheticTokens, to_device
+    from repro_torch.kernels.bitshuffle import ops as bops
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train.state import (train_state_shapes,
                                          train_state_shardings)
     from repro_torch.train.step import make_train_step
     if device == "cuda":
         torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
     torch.set_num_threads(MESH_RANK_THREADS)
     dev = torch.device("cuda", 0) if device == "cuda" else torch.device(
         "cpu")
@@ -3020,15 +3022,18 @@ def mesh_rank_job(src: str, step: int, dst: str, full, dst_step: str,
         Darshan bytes written to data.*)."""
         MONITOR.reset()
         sync()
+        bops.shuffle_blocks.launches = 0
         t0 = time.perf_counter()
         save_checkpoint(path, state, at, engine_config=engine,
                         device_compress=True, parallel_io=MESH_RANKS,
                         n_io_ranks=MESH_RANKS)
+        shuffles.append(bops.shuffle_blocks.launches)
         wrote = sum(c.get(CTR.POSIX_BYTES_WRITTEN, 0.0) for p, c in
                     MONITOR.snapshot()["per_file"].items()
                     if pathlib.Path(p).name.startswith("data."))
         return time.perf_counter() - t0, dict(ckpt.SAVE_STATS), wrote
 
+    shuffles = []
     t_save, _, _ = save(dst, state, at)
     # ---- one train step over the (2, 2) mesh
     data = SyntheticTokens(cfg.padded_vocab, tcfg.seq_len, tcfg.global_batch,
@@ -3038,10 +3043,12 @@ def mesh_rank_job(src: str, step: int, dst: str, full, dst_step: str,
                               kv_chunk=min(256, tcfg.seq_len),
                               ssd_chunk=min(64, tcfg.seq_len))
     sync()
+    fops.flash_attention.launches = 0
     t0 = time.perf_counter()
     state, m = step_fn(state, batch)
     sync()
     t_step = time.perf_counter() - t0
+    flash = fops.flash_attention.launches
     # ---- the stepped state saved one writer a rank
     t_by_rank, by_rank, written = save(dst_step, state, at + 1)
     return {"rank": dist.get_rank(), "coordinate": mesh.get_coordinate(),
@@ -3055,6 +3062,11 @@ def mesh_rank_job(src: str, step: int, dst: str, full, dst_step: str,
             "by_rank_bytes_to_rank0": by_rank["bytes_to_rank0"],
             "by_rank_encode_s": by_rank["encode_s"],
             "by_rank_write_s": by_rank["write_s"],
+            "flash_launches": flash, "shuffle_launches": shuffles,
+            "want_flash": train_launches(cfg)["flash_attention"],
+            "want_shuffles": _shuffled_chunks(state),
+            "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                if device == "cuda" else None),
             "restored_digests": restored, "digests": _digests(state)}
 
 
@@ -3111,31 +3123,40 @@ def _mesh_decode(torch, cfg, params, dev, mesh=None) -> dict:
     return {"logits": out, "s": time.perf_counter() - t0, "faults": bad}
 
 
-def mesh_rank_decode(full) -> dict:
+def mesh_rank_decode(full, device: str) -> dict:
     """One rank of the mesh job's decode: the trainer's config with the
     params of seed 0 (drawn on the host, the same on every rank and on the
-    card) laid out on the (2, 2) mesh by `param_sharding_tree`, a prefill
-    and MESH_DECODE's decode steps with the cache laid out by
-    `cache_sharding_tree` (`_mesh_decode`); rank 0 returns the logits."""
+    card) laid out on the (2, 2) mesh on `device` (MESH_DEVICE) by
+    `param_sharding_tree`, a prefill and MESH_DECODE's decode steps with
+    the cache laid out by `cache_sharding_tree` (`_mesh_decode`), and the
+    prefill's flash launches; rank 0 returns the logits."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import distribute_tensor
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.launch import sharding as S
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
     from repro_torch.optim.tree import tree_map
     torch.set_num_threads(MESH_RANK_THREADS)
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(
+        "cpu")
     cfg = trainer_setup(full)[0]
-    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device_type="cpu")
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device_type=device)
     sh = S.param_sharding_tree(cfg, mesh, M.param_shapes(cfg))
+    # drawn on the host, each rank's shards then moved to the mesh's device
     params = tree_map(lambda t, s: distribute_tensor(t, mesh, s.placements),
                       M.init_params(cfg, 0, device="cpu"), sh)
-    res = _mesh_decode(torch, cfg, params, torch.device("cpu"), mesh)
+    fops.flash_attention.launches = 0
+    res = _mesh_decode(torch, cfg, params, dev, mesh)
+    res["flash_launches"] = fops.flash_attention.launches
     if res["faults"]:
         raise AssertionError(f"rank {dist.get_rank()}: cache leaves "
                              f"{res['faults']} not laid out as "
                              f"cache_sharding_tree says")
-    return res if dist.get_rank() == 0 else {"s": res["s"]}
+    if dist.get_rank():
+        return {"s": res["s"], "flash_launches": res["flash_launches"]}
+    return res
 
 
 def _logit_gap(a: list, b: list) -> float:
@@ -3317,7 +3338,10 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
        `shuffle_blocks` launches the steps and the save should make.
     4. The sharded step against the card's step 3 from the same state,
        and the stepped checkpoint restored 4 -> 1 on the card, bit-equal
-       to the ranks' shards (`_sharded_step_checks`)."""
+       to the ranks' shards (`_sharded_step_checks`).
+    5. Each rank's kernels on its own shards: flash in its step
+       (`train_launches`) and prefill (`serve_launches`), `shuffle_blocks`
+       once a shuffled chunk of its shards in each save."""
     import torch.distributed as dist
     from repro_torch.ckpt.checkpoint import (Stacked, checkpoint_path,
                                              flatten_state,
@@ -3349,7 +3373,7 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
                          str(dst_step), MESH_DEVICE)
         t["job_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        dec_ranks = pool.run(mesh_rank_decode, full)
+        dec_ranks = pool.run(mesh_rank_decode, full, MESH_DEVICE)
         t["decode_job_s"] = time.perf_counter() - t0
     digests = [r.pop("digests") for r in ranks]
     restored = [r.pop("restored_digests") for r in ranks]
@@ -3453,6 +3477,19 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
     finally:
         dist.destroy_process_group()
     decode = mesh_decode_checks(torch, dev, cfg, dec_ranks)
+    # each rank ran its kernels on its own shards: flash in the step
+    # (forward and remat) and in the prefill, shuffle_blocks in each save
+    for r, d in zip(ranks, dec_ranks):
+        want_prefill = serve_launches(cfg)["flash_attention"]
+        if (r["flash_launches"] != r["want_flash"]
+                or r["shuffle_launches"] != [r["want_shuffles"]] * 2
+                or d["flash_launches"] != want_prefill):
+            raise AssertionError(
+                f"rank {r['rank']}: flash {r['flash_launches']} in the step "
+                f"(want {r['want_flash']}), {d['flash_launches']} in the "
+                f"prefill (want {want_prefill}); shuffle_blocks "
+                f"{r['shuffle_launches']} in the two saves (want "
+                f"{r['want_shuffles']} each)")
     res = {"arch": cfg.name, "n_layers": cfg.n_layers, "step": at,
            "mesh_4rank": {"shape": list(MESH_SHAPE), "axes": list(MESH_AXES),
                           "backend": "gloo", "device": MESH_DEVICE},
@@ -3465,7 +3502,9 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
            "bit_exact": True, "t": t, "card": smi,
            "mesh_device": MESH_DEVICE, "sharded_step": sharded,
            "by_rank": by_rank, "shards_checked": shards_checked,
-           "decode": decode}
+           "decode": decode,
+           "decode_ranks": [{"flash_launches": d["flash_launches"],
+                             "s": d["s"]} for d in dec_ranks]}
     print(json.dumps({"mesh": res}))
     return res
 
@@ -3488,7 +3527,9 @@ def print_mesh(res: dict):
           f"bit-equal, save {t['save_s']:.2f} s; launches flash "
           f"{res['flash_launches']}, shuffle_blocks "
           f"{res['shuffle_launches']}")
-    for r in res["ranks"]:
+    for r, d in zip(res["ranks"], res["decode_ranks"]):
+        peak = ("-" if r["peak_memory_gib"] is None else
+                f"{r['peak_memory_gib']:.3f} GiB")
         print(f"  rank {r['rank']} at {r['coordinate']} ({r['device']}): "
               f"read {r['read_bytes']:.0f} bytes for {r['box_bytes']} box "
               f"bytes; restore {r['restore_s']:.2f} s, save one writer a "
@@ -3498,7 +3539,10 @@ def print_mesh(res: dict):
               f"{r['save_by_rank_s']:.2f} s (encode "
               f"{r['by_rank_encode_s']:.2f}, write "
               f"{r['by_rank_write_s']:.2f}), "
-              f"{r['by_rank_bytes_written']} bytes written ({card})")
+              f"{r['by_rank_bytes_written']} bytes written; peak {peak}; "
+              f"launches: flash {r['flash_launches']} in the step, "
+              f"{d['flash_launches']} in the prefill, shuffle_blocks "
+              f"{r['shuffle_launches']} in the two saves ({card})")
     sh, br = res["sharded_step"], res["by_rank"]
     print(f"  the sharded step against the card's step from the same "
           f"state: loss {sh['ranks_loss'][0]} vs {sh['card_loss']} (plain "

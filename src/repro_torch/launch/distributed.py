@@ -14,6 +14,10 @@ size reading only the boxes each rank needs.
 `RankPool` runs functions on W such ranks, spawned processes on the CPU
 that share a `FileStore`: tests and the smoke run drive the multi-rank
 paths (sharded saves, elastic restores) with it on one host.
+`repair_gloo_cuda_gather` gives such a gloo group the functional
+all-gather of CUDA tensors that torch's gloo lacks, so W ranks that share
+one card can hold their tensors on it (`launch.mesh.make_mesh` installs
+it for a gloo group whose mesh is on "cuda").
 `io_rank_range`, `writer_rank_range`, `WorkerAckQueue` and
 `spawn_io_workers` are the write plane's
 (`repro_torch.core.parallel_engine`).
@@ -74,6 +78,66 @@ def initialize(coordinator: Optional[str] = None,
                 world_size=num_processes, rank=process_id)
     return {"process_id": process_id, "num_processes": num_processes,
             "local_devices": 1, "global_devices": num_processes}
+
+
+def gloo_all_gather(input, group_size: int, group_name: str):
+    """The body of the repaired `_c10d_functional::all_gather_into_tensor`
+    (`repair_gloo_cuda_gather`): the rank-major concatenation along dim 0
+    of every rank's `input`, as the functional op returns it, gathered by
+    the c10d `all_gather_into_tensor` on the group that `group_name`
+    names. It completes before it returns, so the functional
+    `wait_tensor` that follows finds no work to wait on. The kernel is
+    registered for the op, not for a group, so a group that is not gloo
+    is refused here, at every call."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    pg = _resolve_process_group(group_name)
+    backend = dist.get_backend(pg)
+    if backend != "gloo":
+        raise RuntimeError(f"the repaired all-gather serves gloo groups "
+                           f"only; group {group_name}'s backend is "
+                           f"{backend}")
+    out = input.new_empty((group_size * input.shape[0],)
+                          + tuple(input.shape[1:]))
+    dist.all_gather_into_tensor(out, input.contiguous(), group=pg)
+    return out
+
+
+_GATHER_REPAIR = None
+
+
+def repair_gloo_cuda_gather():
+    """Give `_c10d_functional::all_gather_into_tensor` a CUDA kernel that
+    runs `gloo_all_gather`, for a default process group on gloo whose
+    ranks hold their tensors on a card.
+
+    Why it exists: on torch 2.11 the functional all-gather, which every
+    DTensor redistribution to `Replicate` issues, reaches gloo's
+    `allgather_into_tensor_coalesced`, which gloo lacks for CUDA tensors:
+    each rank dies with SIGSEGV in it, or, under
+    `TORCH_DISTRIBUTED_DEBUG=DETAIL`, raises "Backend gloo does not
+    support allgather_into_tensor_coalesced". gloo's c10d
+    `all_gather_into_tensor` of CUDA tensors completes, and the other
+    functional collectives do. The kernel is registered once a process
+    under the `CUDA` key only: the op's CPU kernel stays torch's. It
+    replaces the op's CUDA kernel for every group of the process, so it
+    is installed only when the default group is gloo, and its body
+    refuses any group that is not (an nccl group gathers CUDA tensors
+    itself). Returns the `torch.library.Library` that holds the
+    registration."""
+    global _GATHER_REPAIR
+    import torch
+    import torch.distributed as dist
+    backend = dist.get_backend()
+    if backend != "gloo":
+        raise ValueError(f"the functional all-gather is repaired for gloo "
+                         f"groups only; the default group's backend is "
+                         f"{backend}")
+    if _GATHER_REPAIR is None:
+        lib = torch.library.Library("_c10d_functional", "IMPL")
+        lib.impl("all_gather_into_tensor", gloo_all_gather, "CUDA")
+        _GATHER_REPAIR = lib
+    return _GATHER_REPAIR
 
 
 def _rank_main(rank: int, world: int, init_method: str, tasks, results):

@@ -44,7 +44,9 @@ def make_mesh(shape, axes, *, device_type=None):
     With no process group and a mesh of one device, brings up a one-rank
     group itself (nccl for CUDA, gloo for the CPU, on a `HashStore`), so a
     single-card caller needs no launcher; a larger mesh needs the group
-    from `launch.distributed.initialize`."""
+    from `launch.distributed.initialize`. A gloo group's mesh on "cuda"
+    (ranks that share one card) gets the functional all-gather that
+    torch's gloo lacks (`launch.distributed.repair_gloo_cuda_gather`)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
@@ -60,6 +62,10 @@ def make_mesh(shape, axes, *, device_type=None):
     if dist.get_world_size() != math.prod(shape):
         raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks, "
                          f"the process group has {dist.get_world_size()}")
+    if dev.type == "cuda" and dist.get_backend() == "gloo":
+        # ranks sharing one card (nccl takes one rank a card)
+        from repro_torch.launch.distributed import repair_gloo_cuda_gather
+        repair_gloo_cuda_gather()
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
 
 

@@ -320,6 +320,17 @@ def param_pspec_tree(cfg, mesh, shapes_tree):
     return _map_with_path(rule, shapes_tree)
 
 
+def gathered_once_tree(tree):
+    """A tree of `tree`'s structure (a param tree) whose leaves say
+    whether the train step gathers that param over the batch axes once a
+    step: the embedding and head tables [V, d], read outside the layer
+    stack (XLA hoists the reference's gathers of them out of its
+    microbatch loop). Every other FSDP leaf is gathered where a layer
+    reads it (ZeRO-3)."""
+    return _map_with_path(lambda names, leaf, lead: names[-1] == "table",
+                          tree)
+
+
 def _named(mesh, specs):
     return _map_with_path(lambda n, s, lead: NamedSharding(mesh, s), specs)
 

@@ -129,9 +129,19 @@ def local_map(fn, args, in_specs, out_specs, out_shapes, *, site: str = "",
     a spec an output and `out_shapes` its global shape (for the guard);
     the outputs come back as DTensors laid out so. Autograd goes through:
     a `torch.autograd.Function` inside `fn` sees local tensors in its
-    forward and backward alike. An argument whole over a mesh dim that
-    splits another argument (a weight beside a batch-sharded activation)
-    gets a gradient that is a partial sum over that dim.
+    forward and backward alike.
+
+    An argument whole over a mesh dim that splits another argument or an
+    output (a weight beside a batch-sharded activation, an activation
+    beside a column-parallel weight, the kv heads each rank takes its own
+    of) gets a gradient that is a partial sum over that dim. Over `model`
+    it is reduced where the activation is read whole (`reduce_grad`), or
+    by DTensor at its producer. A weight gathered whole over a batch axis
+    here (the ZeRO-3 gather: it lies sharded there) hands its partial sum
+    back as it is, where the gather's own backward would reduce-scatter it
+    at every use: a layer's weights are reduced together when its
+    backward ends (`reduce_grads_once`), the tables once a step
+    (`train.step`).
 
     `partial` names the mesh axes over which the one output of `fn` is a
     partial sum (a contraction over a dim sharded there): each rank's
@@ -160,11 +170,13 @@ def local_map(fn, args, in_specs, out_specs, out_shapes, *, site: str = "",
     out_pl = tuple(None if s is None else placements(tuple(shp), *s,
                                                      mesh=mesh)
                    for s, shp in zip(out_specs, out_shapes))
-    split = {i for pl in in_pl if pl is not None
+    split = {i for pl in in_pl + out_pl if pl is not None
              for i, q in enumerate(pl) if q.is_shard()}
     grad_pl = tuple(None if pl is None else tuple(
         Partial() if i in split and q.is_replicate() else q
         for i, q in enumerate(pl)) for pl in in_pl)
+    args = tuple(_gather_keep_partial(a, pl, gpl)
+                 for a, pl, gpl in zip(args, in_pl, grad_pl))
     run = fn
     if partial:
         (pl,) = out_pl
@@ -191,6 +203,212 @@ def local_map(fn, args, in_specs, out_specs, out_shapes, *, site: str = "",
     for i, o in enumerate((out,) if single else out):
         _note(f"{site}.out{i}" if site else "", o)
     return out
+
+
+class _KeepPartial(torch.autograd.Function):
+    """`x` redistributed to `placements`; the backward hands the gradient
+    back partial over `keep` (the mesh dims it was gathered over), laid
+    out as `x` over the others."""
+
+    @staticmethod
+    def forward(ctx, x, placements, keep):
+        ctx.src, ctx.keep = tuple(x.placements), keep
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        want = tuple(q if i in ctx.keep else s for i, (q, s) in
+                     enumerate(zip(g.placements, ctx.src)))
+        if want != tuple(g.placements):
+            g = g.redistribute(g.device_mesh, want)
+        return g, None, None
+
+
+def _gather_keep_partial(a, pl, grad_pl):
+    """Argument `a` of `local_map` in its placements `pl`: where it is
+    gathered whole over a batch axis whose gradient is a partial sum
+    (`grad_pl`), through `_KeepPartial`, so that sum reaches `a`'s
+    producer unreduced; else as it is (local_map redistributes it)."""
+    if pl is None or not is_dtensor(a) or not a.requires_grad:
+        return a
+    names = a.device_mesh.mesh_dim_names
+    keep = tuple(i for i, (s, q, g) in enumerate(zip(a.placements, pl,
+                                                     grad_pl))
+                 if names[i] in BATCH and s.is_shard() and q.is_replicate()
+                 and g.is_partial())
+    return _KeepPartial.apply(a, pl, keep) if keep else a
+
+
+class _ReduceGrad(torch.autograd.Function):
+    """Identity forward; the backward all-reduces the gradient over the
+    mesh dims `dims` where it is a partial sum (DTensor's
+    Partial -> Replicate), in its own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dims):
+        ctx.dims = dims
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        if not is_dtensor(g):
+            return g, None
+        want = tuple(Replicate() if i in ctx.dims and q.is_partial() else q
+                     for i, q in enumerate(g.placements))
+        if want != tuple(g.placements):
+            g = g.redistribute(g.device_mesh, want)
+        return g, None
+
+
+def reduce_grad(x):
+    """`x` itself, its gradient reduced once here: the backward twin of
+    `local_map(partial=)`. An activation read whole over `model` by
+    products that split their weights over it (q, k and v of one normed
+    input; an FFN's gate and up; the Mamba2 projections; the
+    vocab-parallel unembedding; the kv heads each rank takes its own of)
+    gets a partial sum over `model` from each reader; autograd adds them
+    as they are, and this all-reduces their sum once, in the gradient's
+    dtype, as XLA all-reduces the cotangent of the reference's einsums.
+    `layers.rms_norm` puts it on every normed output, which is what those
+    products read. Its producer then sees it whole over `model` (without
+    this, DTensor reduces it wherever the producer's layout asks: a
+    reduce-scatter and a later all-gather). A gradient that is not a
+    partial sum passes as it is; the batch axes are left to the train
+    step; a size-1 axis is not reduced; a plain tensor, or one that takes
+    no gradient, is returned as it is."""
+    if not is_dtensor(x) or not x.requires_grad:
+        return x
+    mesh = x.device_mesh
+    dims = tuple(i for i, n in enumerate(mesh.mesh_dim_names)
+                 if n not in BATCH and mesh.size(i) > 1)
+    return _ReduceGrad.apply(x, dims) if dims else x
+
+
+def reduce_partials(gs, want) -> list:
+    """Gradients `gs` (DTensors, or None) reduced where they are partial
+    sums, each laid out as its placements in `want` (None: as reduced).
+    The local tensors of all those partial over the same mesh dims of
+    size > 1 (and of one dtype) go in one flat buffer, all-reduced once a
+    dim in their dtype, as XLA combines the reference's gradient
+    reductions; a partial sum over a size-1 dim is its value. A gradient
+    laid out sharded is then a local slice of the reduced sum: an
+    all-reduce and a slice, not a reduce-scatter, because torch 2.11's
+    gloo has no `reduce_scatter_tensor_coalesced` for CUDA tensors (under
+    `TORCH_DISTRIBUTED_DEBUG=DETAIL` it refuses it) and the ranks that
+    share one card run on gloo."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate
+    gs = list(gs)
+    groups: dict = {}
+    for i, g in enumerate(gs):
+        if g is None:
+            continue
+        mesh = g.device_mesh
+        dims = tuple(d for d, q in enumerate(g.placements)
+                     if q.is_partial() and mesh.size(d) > 1)
+        groups.setdefault((dims, g.dtype), []).append(i)
+    local = {i: gs[i].to_local() for idx in groups.values() for i in idx}
+    for (dims, _), idx in groups.items():
+        if not dims:
+            continue
+        mesh = gs[idx[0]].device_mesh
+        buf = torch.cat([local[i].reshape(-1) for i in idx])
+        for d in dims:
+            buf = funcol.wait_tensor(funcol.all_reduce(buf, "sum",
+                                                       (mesh, d)))
+        for i, part in zip(idx, buf.split([local[i].numel() for i in idx])):
+            local[i] = part.view(local[i].shape)
+    out = []
+    for i, (g, pl) in enumerate(zip(gs, want)):
+        if g is not None:
+            mesh = g.device_mesh
+            red = [Replicate() if q.is_partial() and mesh.size(d) > 1 else q
+                   for d, q in enumerate(g.placements)]
+            g = DTensor.from_local(local[i], mesh, red, run_check=False,
+                                   shape=g.shape, stride=g.stride())
+            if pl is not None and tuple(g.placements) != tuple(pl):
+                g = g.redistribute(mesh, pl)
+            loc = g.to_local()
+            if loc.untyped_storage().nbytes() > loc.nbytes:
+                # a view into the reduced buffer (a shard or one leaf of
+                # it): copied, so the buffer is freed
+                g = DTensor.from_local(loc.clone(), mesh, g.placements,
+                                       run_check=False, shape=g.shape,
+                                       stride=g.stride())
+        out.append(g)
+    return out
+
+
+class _ReduceGradsOnce(torch.autograd.Function):
+    """Identity forward on DTensors; the backward, which autograd runs
+    once every output's gradient is in, reduces them together
+    (`reduce_partials`), each laid out as its input."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.set_materialize_grads(False)
+        ctx.src = [tuple(x.placements) for x in xs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return tuple(reduce_partials(gs, ctx.src))
+
+
+def reduce_grads_once(xs) -> list:
+    """`xs` themselves, their gradients reduced together once all are in:
+    a layer's weights, whose gradients come back from their ZeRO-3
+    gathers (`local_map`) as partial sums over the batch axes, are
+    all-reduced in one flat buffer when the layer's backward ends and
+    laid out as the weights, as XLA all-reduces the tuple of a layer's
+    weight gradients. So no more than one layer's gradients are ever
+    whole over the batch axes. Plain tensors, tensors that take no
+    gradient, and a mesh of size-1 dims only are returned as they are."""
+    xs = list(xs)
+    pick = [i for i, x in enumerate(xs) if is_dtensor(x) and x.requires_grad
+            and any(n > 1 for n in x.device_mesh.shape)]
+    if pick:
+        for i, y in zip(pick, _ReduceGradsOnce.apply(*(xs[i]
+                                                       for i in pick))):
+            xs[i] = y
+    return xs
+
+
+def full_values(xs) -> list:
+    """The full values of 0-d tensors as plain tensors: a DTensor partial
+    over some mesh dims is reduced with the others in one all-reduce a
+    mesh dim (each value counted once: a value whole over a dim is taken
+    from that dim's first rank), where `full_tensor` issues one a value
+    and dim. Plain tensors, and DTensors partial over no dim of size > 1,
+    come back as their local values."""
+    from torch.distributed.tensor import DTensor
+    xs = list(xs)
+    mesh = next((x.device_mesh for x in xs if is_dtensor(x)), None)
+    if mesh is None:
+        return xs
+    dims = [i for i in range(mesh.ndim) if mesh.size(i) > 1
+            and any(is_dtensor(x) and x.placements[i].is_partial()
+                    for x in xs)]
+    if any(is_dtensor(x) and (x.ndim or any(q.is_shard()
+                                            for q in x.placements))
+           for x in xs):
+        raise ValueError("full_values takes 0-d tensors")
+    local = [x.to_local() if is_dtensor(x) else x for x in xs]
+    if not dims:
+        return local
+    import torch.distributed._functional_collectives as funcol
+    dtype = local[0].dtype
+    v = torch.stack([t.to(dtype) for t in local])
+    coord = mesh.get_coordinate()
+    for i in dims:
+        # a value whole over dim i is added once, from the dim's first rank
+        keep = torch.tensor([(isinstance(x, DTensor)
+                              and x.placements[i].is_partial())
+                             or coord[i] == 0 for x in xs], device=v.device)
+        v = funcol.wait_tensor(funcol.all_reduce(
+            torch.where(keep, v, torch.zeros_like(v)), "sum", (mesh, i)))
+    return [v[j].to(t.dtype) for j, t in enumerate(local)]
 
 
 def assign(dst, src):

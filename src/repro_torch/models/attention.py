@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     NEG_INF, flash_attention_plain, reference_attention)
 from repro_torch.meshctx import (BATCH, assign, axis_size, is_dtensor,
-                                local_map, shard_hint)
+                                local_map, reduce_grad, shard_hint)
 from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope,
                                        init_rmsnorm, normal, rms_norm)
 
@@ -169,16 +169,30 @@ def _take_heads(t, H: int, Hkv: int, Hp: int):
     """[B,S,Hkv,D] -> [B,S,Hp,D], head h reading kv head
     kv_map[h] = min(h // (H // Hkv), Hkv - 1) (the reference's `take`).
     kv_map does not decrease, so this is each kv head broadcast over its
-    run of query heads, concatenated: views and one copy, whose backward
-    (sums and slices) keeps a DTensor's layout. A DTensor's kv heads are
-    gathered whole over `model` first, one all-gather as XLA issues for
-    the reference's `take` (slicing them sharded gathers once a slice)."""
+    run of query heads, concatenated: views and one copy. A DTensor's kv
+    heads are gathered whole over `model` first, one all-gather as XLA
+    issues for the reference's `take` (slicing them sharded gathers once
+    a slice); each rank then takes the kv heads of its own query heads
+    (the result lies with its heads over `model`), so the gathered
+    heads' gradient is a partial sum over `model`, all-reduced once
+    (`meshctx.reduce_grad`), where a take of the whole heads would
+    gather its gradient back."""
     G = H // Hkv
     runs = [min(h // G, Hkv - 1) for h in range(Hp)]
-    t = shard_hint(t, BATCH, None, None, None, site="attn.take")
+
+    def take(t_, heads):
+        B, S, _, D = t_.shape
+        return torch.cat([t_[:, :, j:j + 1].expand(B, S, heads.count(j), D)
+                          for j in range(Hkv) if heads.count(j)], dim=2)
+    t = reduce_grad(shard_hint(t, BATCH, None, None, None, site="attn.take"))
+    model = t.device_mesh.mesh_dim_names.index("model")
+    per = Hp // t.device_mesh.size(model)
+    first = t.device_mesh.get_local_rank(model) * per
     B, S, _, D = t.shape
-    return torch.cat([t[:, :, j:j + 1].expand(B, S, runs.count(j), D)
-                      for j in range(Hkv) if runs.count(j)], dim=2)
+    return local_map(lambda t_: take(t_, runs[first:first + per]), (t,),
+                     ((BATCH, None, None, None),),
+                     ((BATCH, None, "model", None),), ((B, S, Hp, D),),
+                     site="attn.take_heads")
 
 
 def attention_block(p, x, *, cfg, positions, kv_x=None, kv_positions=None,

@@ -17,7 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.meshctx import BATCH, is_dtensor, local_map
+from repro_torch.meshctx import BATCH, is_dtensor, local_map, reduce_grad
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -105,10 +105,14 @@ def init_rmsnorm(d, *, device, dtype=torch.float32):
 
 
 def rms_norm(p, x, eps=1e-5):
+    """The normed `x` in bf16. On a DTensor, the products that read it
+    whole over `model` (q, k and v; gate and up; the Mamba2 projections;
+    the unembedding) hand back partial gradients, reduced once here
+    (`meshctx.reduce_grad`)."""
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * p["scale"].float()).to(COMPUTE_DTYPE)
+    return reduce_grad((y * p["scale"].float()).to(COMPUTE_DTYPE))
 
 
 # -------------------------------------------------------------------- rope

@@ -24,7 +24,8 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.meshctx import assign, current_mesh, dtensor_scope
+from repro_torch.meshctx import (assign, current_mesh, dtensor_scope,
+                                 reduce_grads_once)
 from repro_torch.models import ssm
 from repro_torch.models.attention import (attention_block, decode_attention,
                                           decode_cross_attention,
@@ -32,6 +33,7 @@ from repro_torch.models.attention import (attention_block, decode_attention,
 from repro_torch.models.layers import (COMPUTE_DTYPE, init_rmsnorm,
                                        init_swiglu, rms_norm, swiglu)
 from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.optim.tree import tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,9 +170,16 @@ def _maybe_remat(fn, remat: bool):
     """`fn`, or `fn` under activation checkpointing (the JAX package's
     `jax.checkpoint`): only its inputs are kept, and its forward runs again
     in the backward, in the mesh scope it first ran in (the backward may
-    run on another thread, where no mesh is active)."""
+    run on another thread, where no mesh is active). Either way the
+    gradients of the params it is given (its dict and list arguments) are
+    reduced together when its backward ends (`meshctx.reduce_grads_once`:
+    one layer's weight gradients, as XLA reduces them a scan step)."""
+    def params_once(args):
+        return tuple(tree_unflatten(a, reduce_grads_once(tree_leaves(a)))
+                     if isinstance(a, (dict, list)) else a for a in args)
+
     if not remat:
-        return fn
+        return lambda *args: fn(*params_once(args))
 
     def run(*args):
         mesh = current_mesh()
@@ -178,8 +187,8 @@ def _maybe_remat(fn, remat: bool):
         def scoped(*a):
             with dtensor_scope(mesh):
                 return fn(*a)
-        return checkpoint(scoped if mesh is not None else fn, *args,
-                          use_reentrant=False)
+        return checkpoint(scoped if mesh is not None else fn,
+                          *params_once(args), use_reentrant=False)
     return run
 
 

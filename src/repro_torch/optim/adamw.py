@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from repro_torch.meshctx import is_dtensor
+from repro_torch.meshctx import full_values, is_dtensor
 from repro_torch.optim.tree import jax_ndims, tree_leaves, tree_map
 
 
@@ -65,17 +65,13 @@ def init_opt_state(params) -> dict:
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
-def _whole(x):
-    """A DTensor's full value as a plain tensor (a reduction over the
-    mesh, for a partial sum); any other tensor as it is."""
-    return x.full_tensor() if is_dtensor(x) else x
-
-
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over the leaves (in the JAX package's order) of each
-    leaf's fp32 sum of squares (of a DTensor leaf, over the whole mesh)."""
-    return torch.sqrt(sum(_whole(torch.sum(torch.square(x.float())))
-                          for x in tree_leaves(tree)))
+    leaf's fp32 sum of squares (of a DTensor leaf, over the whole mesh:
+    the leaves' partial sums in one all-reduce a mesh dim,
+    `meshctx.full_values`)."""
+    return torch.sqrt(sum(full_values(
+        [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)])))
 
 
 def _in_layout(x, like):

@@ -1121,3 +1121,59 @@ def test_custom_ops_fake_outputs_match_a_real_launch(cuda_device):
     for got, want in zip((*fake, *fake_ssd), (*real, *real_ssd)):
         assert (got.shape, got.dtype, got.device) == (want.shape, want.dtype,
                                                       want.device)
+
+
+def _rank_gloo_on_the_card():
+    """A rank of 4 gloo ranks that share cuda:0: `make_mesh` on "cuda"
+    installs the repaired functional all-gather, whose gather of a CUDA
+    tensor must equal the c10d gather; then a forward of the smoke
+    smollm-360m config on the (2, 2) mesh, params laid out by
+    `param_sharding_tree` on the card, with this rank's flash launches."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import model as M
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.train.state import shard_batch
+    torch.cuda.set_device(0)
+    mesh = tmesh.make_mesh((2, 2), _MESH_AXES, device_type="cuda")
+    x = (torch.arange(12, dtype=torch.float32).reshape(4, 3)
+         + 100 * dist.get_rank()).cuda().to(torch.bfloat16)
+    got = funcol.wait_tensor(funcol.all_gather_tensor(x, 0, dist.group.WORLD))
+    want = torch.empty_like(got)
+    dist.all_gather_into_tensor(want, x)
+    cfg = reduce_for_smoke(get_config("smollm-360m"))
+    sh = S.param_sharding_tree(cfg, mesh, M.param_shapes(cfg))
+    params = tree_map(lambda t, s: distribute_tensor(t, mesh, s.placements),
+                      M.init_params(cfg, 0, device="cpu"), sh)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64),
+                           generator=torch.Generator().manual_seed(0))
+    fops.flash_attention.launches = 0
+    with torch.no_grad():
+        logits, _ = M.forward(params, cfg,
+                              shard_batch({"tokens": tokens.cuda()}, mesh),
+                              q_chunk=64, kv_chunk=64)
+    torch.cuda.synchronize()
+    whole = logits.full_tensor()
+    return {"gather_equal": got.is_cuda and torch.equal(got, want),
+            "device": str(logits.to_local().device),
+            "flash": fops.flash_attention.launches,
+            "shape": list(whole.shape),
+            "finite": bool(torch.isfinite(whole).all())}
+
+
+def test_four_gloo_ranks_gather_and_run_flash_on_the_card(cuda_device,
+                                                         tmp_path):
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.launch.distributed import RankPool
+    cfg = reduce_for_smoke(get_config("smollm-360m"))
+    with RankPool(4, tmp_path / "store", timeout=300) as pool:
+        res = pool.run(_rank_gloo_on_the_card)
+    for r in res:
+        assert r["gather_equal"] and r["finite"], r
+        assert r["device"] == "cuda:0"
+        assert r["flash"] == cfg.n_layers
+        assert r["shape"] == [4, 64, cfg.padded_vocab]

@@ -312,6 +312,130 @@ def test_collectives_of_a_1x4_decode_by_hand(shape):
     assert got["collective_traffic_cross_node"] == 0.0
 
 
+_JAX_COLLECTIVES = r"""
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax
+from repro.configs.base import get_config, reduce_for_smoke
+from repro.launch import shapes as SH
+from repro.launch.dryrun import step_fn_for
+from repro.launch.mesh import compat_make_mesh
+from repro.meshctx import use_mesh
+from repro.roofline import hlo_analysis as H
+
+arch, shape = sys.argv[1:3]
+mesh = compat_make_mesh((2, 2), ("data", "model"))
+cfg = reduce_for_smoke(get_config(arch))
+spec = SH.input_specs(cfg, shape, mesh)
+fn = step_fn_for(cfg, spec["kind"], shape)
+with use_mesh(mesh):
+    text = jax.jit(fn, in_shardings=spec["in_shardings"]).lower(
+        *spec["args"]).compile().as_text()
+out = H.analyze(text, 4)
+seq = SH.SHAPE_TABLE[shape].seq
+
+
+class Narrowed(H.HloAnalyzer):
+    # an activation's all-gather, f32 [b, S, ...] in the CPU build, bf16 in
+    # the reference's code (k and v, the hidden states), at bf16
+    def _collective_bytes(self, ins, comp):
+        b = super()._collective_bytes(ins, comp)
+        dims = H.shape_dims(ins.type_str)
+        if (ins.op.startswith("all-gather")
+                and ins.type_str.startswith("f32[")
+                and len(dims) >= 3 and dims[1] == seq):
+            return b / 2.0
+        return b
+
+
+narrowed = sum(r.traffic_bytes for r in Narrowed(text, 4).cost().collectives)
+print(json.dumps({**{k: out[k] for k in ("collective_op_counts",
+                                         "collective_traffic_per_device")},
+                  "narrowed_traffic_per_device": narrowed}))
+"""
+
+
+def test_collectives_of_a_2x2_train_step_against_xla():
+    """smollm-360m's smoke `train_4k` step (L = 4, batch 256 x 4096 in 8
+    microbatches of 32, remat) on a fake (2, 2) ("data", "model") mesh,
+    against `HloAnalyzer`'s counts on the reference's HLO for the same
+    cell on 4 host devices: no more of each kind than XLA issues, no
+    reduce-scatter, no more traffic a device than XLA's with its
+    all-gathers at the reference's dtypes. Op by op (a microbatch "mb", a
+    layer "l"):
+
+    - all-reduce, port 285: the attention output's and FFN down's partial
+      sums (`local_map(partial=)`), 2 a l and mb, and the attention
+      output's again in the remat recompute (torch's checkpoint stops its
+      recompute before the FFN down, whose output the backward does not
+      need); the cotangents read whole over `model`, reduced once
+      (`meshctx.reduce_grad`): the attention input's (q, k, v) and the
+      FFN input's (gate, up) at their norms, and the kv heads each rank
+      took its own of, k and v; the layer's weight gradients in one flat
+      buffer when its backward ends (`meshctx.reduce_grads_once`): 8 a l
+      and mb; a mb: the embedding's partial rows, the unembedding input's
+      cotangent, the token count; a step: the tables' gradients and the
+      final norm's in one bucket (`meshctx.reduce_partials`), the grad
+      norm's and the metrics' scalars over "data" and "model" (2 + 2):
+      8 x (4 x 8 + 3) + 5 = 285. XLA 299: the same products' 4 a l and
+      mb (its remat recomputes the FFN down's too), the attention
+      input's cotangent tupled with k's and with v's (2), the FFN input's
+      two (1), a tuple of the layer's weight gradients (1); a mb: the
+      unembedding input's cotangent (tupled with a [B, S] row), the
+      vocab-parallel cross-entropy's two [B, S] reductions, the table's
+      gradient, the token count; a step: 3 tuples of scalars:
+      8 x (4 x 8 + 5) + 3 = 299.
+    - all-gather, port 587: the ZeRO-3 gathers of a layer's 7 weights and
+      the kv heads' k and v (`attention._take_heads`), each in the
+      forward and the recompute, 18 a l and mb; the logits for the
+      cross-entropy, 1 a mb; the tied table once a step
+      (`train.step._gather_tables`); the batch's tokens and labels,
+      gathered whole before they are cut into microbatches
+      (`train.step._rows`), 2: 8 x 73 + 3.
+      XLA 587: the same 18 a l and mb, a [B, S, d] gather a mb, and the
+      tables' 3 (hoisted out of the microbatch loop).
+    - XLA's 2 all-to-alls are the batch's reshape into microbatches (the
+      port's 2 gathers above); its 9 collective-permutes move the table
+      between its vocab- and feature-sharded layouts, which the port
+      never changes (its gradient goes with the bucket).
+    - reduce-scatter: none in either. A weight's gradient comes back from
+      its ZeRO-3 gather partial over "data" (`meshctx.local_map`), is
+      all-reduced with the layer's others and sliced to the rank's shard,
+      as XLA's CPU build all-reduces the tuple.
+
+    Traffic a device (torch 2.13, this host): the port 5,662,540,912
+    bytes (its kv gathers bf16 at 1,073,741,824, as XLA's narrowed; the
+    logits' gather f32 [32, 4096, 256] 8 x 67,108,864, where XLA gathers
+    bf16 [16, 4096, 128]); before the backward was reduced once, 346 /
+    312 reduce-scatters / 666, 5,121,843,624. XLA 7,807,912,048 as
+    `HloAnalyzer` counts it, with its all-gathers at f32 (the CPU build
+    widens them); 6,667,061,360 with its activations' all-gathers ([b, S,
+    ...]: k and v, the hidden states; bf16 in the reference) at bf16,
+    the figure the port is held to. The weights' gathers stay f32 in
+    both: the params are f32 and both gather them before the cast."""
+    cfg, res, _ = _port_counts("smollm-360m", "train_4k")
+    got = res["counts"]
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", _JAX_COLLECTIVES,
+                        "smollm-360m", "train_4k"], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    xla = json.loads(r.stdout.strip().splitlines()[-1])
+    ops, xops = got["collective_op_counts"], xla["collective_op_counts"]
+    traffic = got["collective_traffic_per_device"]
+    print(f"port {ops} {traffic:.0f} B; XLA {xops} "
+          f"{xla['collective_traffic_per_device']:.0f} B, narrowed "
+          f"{xla['narrowed_traffic_per_device']:.0f} B")
+    assert ops == {"all-gather": 587.0, "all-reduce": 285.0}
+    assert "reduce-scatter" not in ops
+    for kind in ("all-reduce", "all-gather"):
+        assert ops[kind] <= xops[kind], kind
+    assert (ops["all-gather"] + ops.get("all-to-all", 0)
+            <= xops["all-gather"] + xops.get("all-to-all", 0))
+    assert traffic == pytest.approx(5_662_540_912, rel=1e-3)
+    assert traffic <= xla["narrowed_traffic_per_device"]
+
+
 @pytest.mark.parametrize("shape,cross", [((2, 8), False), ((1, 16), True)])
 def test_a_group_that_spans_nodes_is_counted_apart(shape, cross):
     """An all-gather over `model` on 16 fake ranks: 8 wide, each group is
