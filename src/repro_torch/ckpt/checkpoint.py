@@ -51,6 +51,7 @@ import torch
 
 from repro_torch.core import compression as C
 from repro_torch.core.bp_engine import BpReader, BpWriter, EngineConfig
+from repro_torch.core.dxt import TRACER
 from repro_torch.models.convert import STACKED
 
 SEP = "/"
@@ -95,7 +96,9 @@ def _tensor_from(arr: np.ndarray, dtype, shape, device) -> torch.Tensor:
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr.astype(C.np_dtype(dtype), copy=False))
-    return t.reshape(shape).to(device)
+    with TRACER.span("h2d", length=t.numel() * t.element_size(),
+                     layer="ckpt"):
+        return t.reshape(shape).to(device)
 
 
 def _restore_leaf(arr: np.ndarray, like):
@@ -310,10 +313,11 @@ def _close_quietly(w):
 
 
 def _publish(directory, final, tmp, step: int):
-    if final.exists():
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    (directory / "latest.txt").write_text(str(step))
+    with TRACER.span("publish", path=str(final), layer="ckpt"):
+        if final.exists():
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        (directory / "latest.txt").write_text(str(step))
 
 
 def _device_leaf(leaf, use_dev: bool) -> bool:

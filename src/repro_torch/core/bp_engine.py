@@ -212,9 +212,8 @@ def seal_md_record(md, idx, md_off: int, step: int, blob: bytes,
     returning (md.0 fsynced BEFORE the idx record exists, so a validated
     idx record always points at durable metadata); otherwise bytes reach
     the OS and the fsync is deferred to close. Returns the new md offset."""
-    ts = time.perf_counter()
     with TRACER.span("seal", path=getattr(idx, "path", ""),
-                     length=len(blob)):
+                     length=len(blob), observe=True):
         md.write(blob)
         crc = zlib.crc32(blob) & 0xFFFFFFFF
         rec = IDX_RECORD.pack(step, md_off, len(blob), crc, 1,
@@ -227,9 +226,6 @@ def seal_md_record(md, idx, md_off: int, step: int, blob: bytes,
             idx.write(rec)
             md.flush()   # bytes reach the OS; fsync deferred to close
             idx.flush()
-    if METRICS.enabled:
-        METRICS.observe("seal", time.perf_counter() - ts, nbytes=len(blob),
-                        key=getattr(idx, "path", ""))
     return md_off + len(blob)
 
 
@@ -400,7 +396,7 @@ class BpWriter:
                 dpath = str(self.path / f"data.{agg}")
                 payloads, metas = [], []
                 with TRACER.span("compress", path=f"data.{agg}",
-                                 rank=agg) as sp:
+                                 rank=agg, observe=True) as sp:
                     for name, rank, offset, arr, codec in items:
                         payload, shape, stats, dstats = encode_chunk(
                             arr, codec, self.cfg.compression_block,
@@ -413,11 +409,9 @@ class BpWriter:
                                       len(payload), stats))
                     sp.length = sum(len(p) for p in payloads)
                 tcomp = time.perf_counter() - tc
-                if METRICS.enabled:
-                    METRICS.observe(
-                        "compress", tcomp, key=f"data.{agg}",
-                        nbytes=sum(len(p) for p in payloads))
-                base = self.subfiles.append(agg, b"".join(payloads))
+                blob = b"".join(payloads)
+                with TRACER.span("append", rank=agg, length=len(blob)):
+                    base = self.subfiles.append(agg, blob)
             except Exception as e:   # noqa: BLE001
                 errors.append(e)
                 return
@@ -815,8 +809,14 @@ class BpReader:
         """Uncached read+decompress of one stored chunk (`local=True` uses
         the per-thread handle — the ReaderPool path)."""
         read = self._read_payload_local if local else self._read_payload
-        payload = read(ch.agg, ch.file_offset, ch.nbytes)
-        return C.payload_to_array(payload, dtype, ch.extent)
+        with TRACER.annotate("bp.read"):
+            payload = read(ch.agg, ch.file_offset, ch.nbytes)
+        t0 = time.perf_counter()
+        with TRACER.span("decode", length=ch.nbytes):
+            arr = C.payload_to_array(payload, dtype, ch.extent)
+        MONITOR.record(0, str(self.path / f"data.{ch.agg}"),
+                       CTR.DECOMPRESS_TIME, time.perf_counter() - t0)
+        return arr
 
     def read_chunk(self, step: int, name: str, ch: ChunkMeta, *,
                    dtype=None, local: bool = False) -> np.ndarray:

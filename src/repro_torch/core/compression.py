@@ -43,7 +43,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.dxt import TRACER
-from repro_torch.core.metrics import METRICS
 
 MAGIC = b"JBPC"
 HEADER = struct.Struct("<4sBBHII")  # magic, codec_id, itemsize, flags, raw, comp
@@ -352,8 +351,9 @@ def array_payload(arr: np.ndarray, codec: str,
         # same-width floats. Integers etc. get the lossless pipeline.
         codec = "blosc"
     # zero-copy into the chunked compressor (no .tobytes() duplication)
-    return compress(a.reshape(-1).view(np.uint8).data, codec,
-                    itemsize=a.dtype.itemsize, block=block)
+    with TRACER.span("encode", length=a.nbytes):
+        return compress(a.reshape(-1).view(np.uint8).data, codec,
+                        itemsize=a.dtype.itemsize, block=block)
 
 
 def payload_to_array(buf: bytes, dtype, shape) -> np.ndarray:
@@ -503,32 +503,42 @@ def _device_shuffled_blocks(t: torch.Tensor, block: int, itemsize: int):
     start each block's D2H copy into one pinned buffer, recording an event
     per block — the device queue runs ahead of the host. Returns (host
     uint8 buffer, blocks=[(lo, hi, event | None, was_shuffled)],
-    device_bytes, minmax)."""
+    device_bytes, minmax). The `device_shuffle` span covers this stage
+    alone: the waits for the copies and the host LZ are spans of their
+    own."""
     from repro_torch.kernels.bitshuffle import ops as bops
     byts = _device_byte_view(t)
     nbytes = int(byts.shape[0])
-    minmax = _device_minmax(t)
-    on_cuda = byts.is_cuda
-    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=on_cuda)
-    spans = [(i, min(i + block, nbytes))
-             for i in range(0, max(nbytes, 1), block)]
-    # mirror the host byte_shuffle no-op cases exactly so payloads are
-    # bit-compatible: itemsize 1 or a non-multiple block pass through
-    # (shuffle_blocks copies such a block unchanged)
-    shuf = [itemsize > 1 and hi > lo and (hi - lo) % itemsize == 0
-            for lo, hi in spans]
-    if any(shuf):
-        byts = bops.shuffle_blocks(byts, block=block, itemsize=itemsize)
-    blocks = []
-    for (lo, hi), was_shuffled in zip(spans, shuf):
-        host[lo:hi].copy_(byts[lo:hi], non_blocking=on_cuda)
-        ev = None
-        if on_cuda:             # block k's D2H overlaps block k+1's LZ
-            ev = torch.cuda.Event()
-            ev.record()
-        blocks.append((lo, hi, ev, was_shuffled))
+    with TRACER.span("device_shuffle", length=nbytes, observe=True):
+        minmax = _device_minmax(t)
+        on_cuda = byts.is_cuda
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=on_cuda)
+        spans = [(i, min(i + block, nbytes))
+                 for i in range(0, max(nbytes, 1), block)]
+        # mirror the host byte_shuffle no-op cases exactly so payloads are
+        # bit-compatible: itemsize 1 or a non-multiple block pass through
+        # (shuffle_blocks copies such a block unchanged)
+        shuf = [itemsize > 1 and hi > lo and (hi - lo) % itemsize == 0
+                for lo, hi in spans]
+        if any(shuf):
+            byts = bops.shuffle_blocks(byts, block=block, itemsize=itemsize)
+        blocks = []
+        for (lo, hi), was_shuffled in zip(spans, shuf):
+            host[lo:hi].copy_(byts[lo:hi], non_blocking=on_cuda)
+            ev = None
+            if on_cuda:             # block k's D2H overlaps block k+1's LZ
+                ev = torch.cuda.Event()
+                ev.record()
+            blocks.append((lo, hi, ev, was_shuffled))
     device_bytes = sum(hi - lo for (lo, hi), was in zip(spans, shuf) if was)
     return host.numpy(), blocks, device_bytes, minmax
+
+
+def _land(ev):
+    """Wait for one block's D2H copy (`bp.d2h_wait`)."""
+    if ev is not None:
+        with TRACER.span("d2h_wait"):
+            ev.synchronize()
 
 
 def _minmax_floats(minmax) -> tuple[float, float]:
@@ -543,18 +553,12 @@ def device_precondition(t: torch.Tensor, *,
     the shuffled bytes on host as a `PreshuffledChunk` (the form a writer
     worker finishes with the LZ stage alone). Min/max chunk stats ride
     along from a device-side reduction."""
-    t0 = time.perf_counter()
     dt = np_dtype(t.dtype)
-    with TRACER.span("device_shuffle", length=int(t.numel()) * dt.itemsize):
-        host, blocks, dev_bytes, minmax = _device_shuffled_blocks(
-            t, block, dt.itemsize)
-        for _lo, _hi, ev, _shuf in blocks:
-            if ev is not None:
-                ev.synchronize()
+    host, blocks, dev_bytes, minmax = _device_shuffled_blocks(
+        t, block, dt.itemsize)
+    for _lo, _hi, ev, _shuf in blocks:
+        _land(ev)
     vmin, vmax = _minmax_floats(minmax)
-    if METRICS.enabled:
-        METRICS.observe("device_shuffle", time.perf_counter() - t0,
-                        nbytes=host.nbytes)
     return PreshuffledChunk(host, dt, t.shape, block, vmin, vmax,
                             device_bytes=dev_bytes)
 
@@ -597,29 +601,23 @@ def device_array_payload(t: torch.Tensor, codec: str,
             stats.vmin = float(np.min(a))
             stats.vmax = float(np.max(a))
         return array_payload(a, codec, block), stats
-    t0 = time.perf_counter()
-    with TRACER.span("device_shuffle", length=int(t.numel()) * dt.itemsize):
-        host, blocks, device_bytes, minmax = _device_shuffled_blocks(
-            t, block, dt.itemsize)
-        out = []
-        lz_s = lz_last = 0.0
-        for lo, hi, ev, shuf in blocks:
-            if ev is not None:
-                ev.synchronize()    # lands block k; k+1's D2H is in flight
-            t1 = time.perf_counter()
+    host, blocks, device_bytes, minmax = _device_shuffled_blocks(
+        t, block, dt.itemsize)
+    out = []
+    overlap_s = 0.0
+    for k, (lo, hi, ev, shuf) in enumerate(blocks):
+        _land(ev)           # lands block k; k+1's D2H may be in flight
+        # this block's LZ overlaps a transfer only if the next block's
+        # copy has not landed when it starts
+        nxt = blocks[k + 1][2] if k + 1 < len(blocks) else None
+        in_flight = nxt is not None and not nxt.query()
+        t1 = time.perf_counter() if in_flight else 0.0
+        with TRACER.span("encode", length=hi - lo):
             out.append(_compress_block(host[lo:hi].data, name, dt.itemsize,
                                        preshuffled=shuf))
-            t2 = time.perf_counter()
-            lz_s += t2 - t1
-            lz_last = t2 - t1
-    wall = time.perf_counter() - t0
+        if in_flight:
+            overlap_s += time.perf_counter() - t1
     vmin, vmax = _minmax_floats(minmax)
-    stats = DeviceStats(
-        device_bytes=device_bytes,
-        # LZ seconds that ran while a later block was still in the device/
-        # transfer stage — every block's LZ except the last overlaps
-        overlap_s=lz_s - lz_last if len(blocks) > 1 else 0.0,
-        vmin=vmin, vmax=vmax)
-    if METRICS.enabled:
-        METRICS.observe("device_shuffle", wall, nbytes=host.nbytes)
+    stats = DeviceStats(device_bytes=device_bytes, overlap_s=overlap_s,
+                        vmin=vmin, vmax=vmax)
     return b"".join(out), stats

@@ -65,6 +65,9 @@ class _FrozenCounterRegistry:
     COMPRESS_DEVICE_BYTES = "COMPRESS_DEVICE_BYTES"
     COMPRESS_OVERLAP_TIME = "COMPRESS_OVERLAP_TIME"
     LOSSY_BYTES_SAVED = "LOSSY_BYTES_SAVED"
+    # host-codec seconds decoding stored payloads on the read side (the
+    # inflate and unshuffle of `BpReader`), summed over reading threads
+    DECOMPRESS_TIME = "DECOMPRESS_TIME"
     # DXT trace summary fields (parser_dump / jbpd watch frames). These are
     # REPORT keys, never recorded directly, so they are excluded from
     # KNOWN_COUNTERS below.
@@ -106,7 +109,7 @@ _SERVICE_KEYS = (CTR.SERVICE_CACHE_HIT, CTR.SERVICE_CACHE_MISS,
                  CTR.SERVICE_COALESCED, CTR.SERVICE_SHM_BYTES,
                  CTR.SERVICE_SOCKET_BYTES)
 _COMPRESS_KEYS = (CTR.COMPRESS_DEVICE_BYTES, CTR.COMPRESS_OVERLAP_TIME,
-                  CTR.LOSSY_BYTES_SAVED)
+                  CTR.LOSSY_BYTES_SAVED, CTR.DECOMPRESS_TIME)
 
 _SIZE_BINS = (100, 1024, 10 * 1024, 100 * 1024, 1024**2, 4 * 1024**2,
               10 * 1024**2, 100 * 1024**2)
@@ -367,10 +370,11 @@ class InstrumentedFile:
             TRACER.record(self.rank, self.path, "flush", self._pos, 0, t0, t1)
 
     def fsync(self):
-        t0 = time.perf_counter()
-        self._f.flush()
-        os.fsync(self._f.fileno())
-        t1 = time.perf_counter()
+        with TRACER.annotate("bp.fsync"):
+            t0 = time.perf_counter()
+            self._f.flush()
+            os.fsync(self._f.fileno())
+            t1 = time.perf_counter()
         self.mon.record(self.rank, self.path, CTR.POSIX_FSYNCS, 1.0,
                         CTR.F_META_TIME, t1 - t0)
         if TRACER.enabled:

@@ -42,15 +42,32 @@ Exports:
 Enable programmatically (`TRACER.enable()`) or via the environment
 (`JBP_DXT=1`, inherited by spawned writer workers); `JBP_DXT_CAPACITY`
 overrides the per-thread ring size.
+
+The profiler sink: while a `torch.profiler` session records, every span
+also opens a profiler range named `<layer>.<op>` ("bp.encode",
+"pic.spawn", "ckpt.publish"), which the profiler exports beside the
+kernels, on the device trace's clock: a `record_function` range, which
+the trace holds as a `user_annotation` event.
+`annotate(name)` opens such a range alone, for work the ring already
+logs as POSIX ops (`bp.fsync`, `bp.read`). The profiler sees a range on
+the thread that started it, and on every thread with
+`_ExperimentalConfig(profile_all_threads=True)`. Whether a session
+records is read from `torch.autograd.profiler` in `sys.modules`, so this
+module never imports torch. With the ring off, no session recording and
+no metrics observation asked for, `span` returns the shared no-op span:
+no clock read, no allocation, no device sync.
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
 from typing import Optional
+
+from repro_torch.core.metrics import METRICS
 
 DEFAULT_CAPACITY = int(os.environ.get("JBP_DXT_CAPACITY", 1 << 15))
 
@@ -59,7 +76,8 @@ DEFAULT_CAPACITY = int(os.environ.get("JBP_DXT_CAPACITY", 1 << 15))
 # Chrome export group by them
 SPAN_OPS = ("snapshot", "compress", "transport", "prepare", "seal",
             "commit", "pipeline", "cache_fetch", "serve", "read_task",
-            "device_shuffle")
+            "device_shuffle", "d2h_wait", "encode", "append", "decode",
+            "publish", "h2d", "deposit", "key", "ionize", "spawn", "push")
 POSIX_OPS = ("open", "read", "write", "seek", "flush", "fsync", "close")
 
 
@@ -75,27 +93,54 @@ class _ThreadBuf:
         self.cap = cap
 
 
-class _Span:
-    """Context manager recording one lifecycle span on exit. `length` may
-    be set inside the block (e.g. bytes moved by a transport span)."""
+def _recording():
+    """`record_function` while a profiler session records, else None
+    (looked up, never imported)."""
+    ap = sys.modules.get("torch.autograd.profiler")
+    if ap is None or not ap._is_profiler_enabled:
+        return None
+    return ap.record_function
 
-    __slots__ = ("_tr", "op", "path", "rank", "length", "_t0")
+
+class _Span:
+    """Context manager for one lifecycle span: a profiler range (`rf`)
+    while a session records, one ring event on exit while the ring is on
+    (`ring`), and one `METRICS` observation of the same interval under
+    (op, path) where the site asked for it (`observe`). `length` may be
+    set inside the block (e.g. bytes moved by a transport span)."""
+
+    __slots__ = ("_tr", "op", "path", "rank", "length", "_t0", "_rf",
+                 "_ring", "_observe")
 
     def __init__(self, tr: "DxtTracer", op: str, path: str, rank: int,
-                 length: int):
+                 length: int, rf, ring: bool, observe: bool):
         self._tr = tr
         self.op = op
         self.path = path
         self.rank = rank
         self.length = length
+        self._rf = rf
+        self._ring = ring
+        self._observe = observe
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        if self._rf is not None:
+            self._rf.__enter__()
+        if self._ring or self._observe:
+            self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *a):
-        self._tr.record(self.rank, self.path, self.op, 0, self.length,
-                        self._t0, time.perf_counter())
+        if self._ring or self._observe:
+            t1 = time.perf_counter()
+            if self._ring:
+                self._tr.record(self.rank, self.path, self.op, 0,
+                                self.length, self._t0, t1)
+            if self._observe:
+                METRICS.observe(self.op, t1 - self._t0, nbytes=self.length,
+                                key=self.path)
+        if self._rf is not None:
+            self._rf.__exit__(*a)
         return False
 
 
@@ -191,12 +236,26 @@ class DxtTracer:
             buf.dropped += 1
         ev.append((rank, path, op, offset, length, t0, t1))
 
-    def span(self, op: str, path: str = "", rank: int = 0, length: int = 0):
-        """Lifecycle span context manager; a shared no-op when disabled
-        (callers on hot paths may also branch on `TRACER.enabled`)."""
-        if not self.enabled:
+    def span(self, op: str, path: str = "", rank: int = 0, length: int = 0,
+             *, layer: str = "bp", observe: bool = False):
+        """Lifecycle span context manager: a ring event while the ring is
+        on, a `<layer>.<op>` range while a profiler records, and with
+        `observe` a `METRICS.observe(op, seconds, nbytes=length,
+        key=path)` while the metrics plane is on; the shared no-op span
+        when none of these is."""
+        rng = _recording()
+        observe = observe and METRICS.enabled
+        if not (self.enabled or observe or rng is not None):
             return _NULL_SPAN
-        return _Span(self, op, path, rank, length)
+        rf = None if rng is None else rng(f"{layer}.{op}")
+        return _Span(self, op, path, rank, length, rf, self.enabled, observe)
+
+    @staticmethod
+    def annotate(name: str):
+        """A profiler range named `name` while a session records, else the
+        shared no-op span; nothing goes to the ring."""
+        rng = _recording()
+        return _NULL_SPAN if rng is None else rng(name)
 
     @staticmethod
     def now() -> float:

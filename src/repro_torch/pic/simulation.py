@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core.dxt import TRACER
 from repro_torch.pic import collisions, fields, grid
 from repro_torch.pic.particles import Species, init_species, push
 
@@ -91,8 +92,10 @@ def _split(s: int, num: int) -> list[int]:
 
 
 def split_key(key: torch.Tensor, num: int = 2) -> list[int]:
-    """`num` 64-bit seeds derived from a uint32[2] key (reads it to host)."""
-    return _split(_key_int(key), num)
+    """`num` 64-bit seeds derived from a uint32[2] key (reads it to host,
+    `pic.key`: one of a step's syncs; `particles.spawn` makes two more)."""
+    with TRACER.span("key", layer="pic"):
+        return _split(_key_int(key), num)
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -128,9 +131,10 @@ def pic_step(state: PicState, cfg: PicConfig,
     dev = e.x.device
 
     # 1-2. deposition + smoothing
-    rho_e = grid.deposit_cic(e.x, e.w, e.alive, cfg.n_cells, dx)
-    rho_i = grid.deposit_cic(i.x, i.w, i.alive, cfg.n_cells, dx)
-    rho = i.charge * rho_i + e.charge * rho_e
+    with TRACER.span("deposit", layer="pic"):
+        rho_e = grid.deposit_cic(e.x, e.w, e.alive, cfg.n_cells, dx)
+        rho_i = grid.deposit_cic(i.x, i.w, i.alive, cfg.n_cells, dx)
+        rho = i.charge * rho_i + e.charge * rho_e
     if cfg.smoothing:
         rho = grid.smooth_121(rho)
 
@@ -143,18 +147,21 @@ def pic_step(state: PicState, cfg: PicConfig,
     # 4. MC collisions (ionization) — needs n_e per cell
     next_seed, sub = split_key(state.key)
     draws = draws or {}
-    e, i, n, info = collisions.ionize(
-        _generator(sub, dev), e, i, n, rate_R=cfg.rate_R, dt=cfg.dt, L=cfg.L,
-        n_cells=cfg.n_cells, electron_density_per_cell=rho_e * dx,
-        u=draws.get("u"), kick=draws.get("kick"))
+    with TRACER.span("ionize", layer="pic"):
+        e, i, n, info = collisions.ionize(
+            _generator(sub, dev), e, i, n, rate_R=cfg.rate_R, dt=cfg.dt,
+            L=cfg.L, n_cells=cfg.n_cells,
+            electron_density_per_cell=rho_e * dx,
+            u=draws.get("u"), kick=draws.get("kick"))
 
     # 5. push + walls
-    e, wf_e = push(e, grid.gather_field(E, e.x, dx), cfg.dt, cfg.L,
-                   boundary=cfg.boundary)
-    i, wf_i = push(i, grid.gather_field(E, i.x, dx), cfg.dt, cfg.L,
-                   boundary=cfg.boundary)
-    n, _ = push(n, torch.zeros_like(n.x), cfg.dt, cfg.L,
-                boundary=cfg.boundary)
+    with TRACER.span("push", layer="pic"):
+        e, wf_e = push(e, grid.gather_field(E, e.x, dx), cfg.dt, cfg.L,
+                       boundary=cfg.boundary)
+        i, wf_i = push(i, grid.gather_field(E, i.x, dx), cfg.dt, cfg.L,
+                       boundary=cfg.boundary)
+        n, _ = push(n, torch.zeros_like(n.x), cfg.dt, cfg.L,
+                    boundary=cfg.boundary)
 
     return PicState(e, i, n, _key_tensor(next_seed, state.key.device),
                     state.step + 1,
