@@ -130,7 +130,10 @@ BF16_OPS_PER_S = 989e12
 DEPOSIT_OPS = 9
 #: name fragments of the port's CUDA kernels, as the profiler shows them
 PORT_KERNELS = ("deposit_cic", "shuffle_kernel", "flash_fwd_mma",
-                "ssd_cb_kernel", "ssd_chunk_scan_kernel")
+                "ssd_cb_kernel", "ssd_chunk_scan_kernel", "spawn_")
+#: kernels a spawn call launches with slots and candidates: count, scan,
+#: compact, fill
+SPAWN_LAUNCHES = 4
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -365,6 +368,70 @@ def check_deposit(torch, dev, n: int, n_cells: int) -> dict:
             "bound_ms": b, "bound_by": by, "library_ms": lib,
             "library_device_ms": lib_dev,
             "shape": f"N={n}, n_cells={n_cells}"}
+
+
+def _step_spawn_args(torch, dev, cfg, steps: int = 3) -> list:
+    """The arguments of the two `particles.spawn` calls (electrons, ions)
+    of the last of `steps` real steps at `cfg`'s width, as
+    `collisions.ionize` passes them."""
+    from repro_torch.pic import collisions
+    from repro_torch.pic import simulation as sim
+    calls = []
+    real = collisions.spawn
+
+    def record(sp, *args):
+        calls.append((sp.x, sp.v, sp.w, sp.alive, *args))
+        return real(sp, *args)
+    collisions.spawn = record
+    try:
+        state = sim.init_sim(cfg, 1, device=dev)
+        for _ in range(steps):
+            state = sim.pic_step(state, cfg)
+    finally:
+        collisions.spawn = real
+    torch.cuda.synchronize()
+    return calls[-2:]
+
+
+def check_spawn(torch, dev) -> dict:
+    """The kernel against its plain version, bit for bit, on a real paper
+    step's two calls (2^25 slots, the step's events); times the first."""
+    from repro_torch.kernels.spawn import ops as spops
+    from repro_torch.kernels.spawn.ref import spawn_ref
+    calls = _step_spawn_args(torch, dev, paper_cfg())
+    for args in calls:
+        got, ref = spops.spawn(*args), spawn_ref(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g.view(torch.int32), r.view(torch.int32))
+                   for g, r in zip(got[:4], ref[:4]))
+        if not same or int(got[4]) != int(ref[4]):
+            raise AssertionError("spawn disagrees with plain")
+    args = calls[0]
+    C, M = args[0].shape[0], args[-1].shape[0]
+    events = int(args[-1].sum())
+    n_dead = int((args[3] <= 0).sum())
+    placed = min(events, n_dead)
+    print(f"spawn C={C} M={M} events={events} dead={n_dead}: bit-exact "
+          f"(both species)")
+
+    def kernel(i):
+        return spops.spawn(*args)
+    ms = time_ms(torch, kernel, 20)
+    plain = time_ms(torch, lambda i: spawn_ref(*args), 5)
+    # read and write every slot's x, v, w, alive; read the mask and each
+    # placed event's x, v, w; write dropped
+    b, by = bound_ms(48 * C + M + 20 * placed + 8, 0)
+    plain_dev = library_device_ms(torch, lambda i: spawn_ref(*args), 5)
+    print(f"spawn plain version: {plain:.4f} ms, device {plain_dev:.5f}")
+    return {"name": "spawn", "route": "cuda",
+            "device_ms": device_ms(torch, kernel, 10, "spawn_"),
+            "call_device_ms": library_device_ms(torch, kernel, 10),
+            "source": "src/repro_torch/csrc/spawn.cu",
+            "replaces": "none: src/repro/pic/particles.py::spawn is jnp",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "plain_device_ms": plain_dev, "bound_ms": b, "bound_by": by,
+            "library_ms": None, "library_device_ms": None,
+            "shape": f"C={C}, M={M}, events={events}, dead={n_dead}"}
 
 
 def check_bitshuffle(torch, dev, block: int, itemsize: int,
@@ -3596,6 +3663,7 @@ def main() -> int:
     from repro_torch.kernels.bitshuffle import ops as bops
     from repro_torch.kernels.deposit import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.spawn import ops as spops
     from repro_torch.kernels.ssd_scan import ops as sops
 
     smi = subprocess.run(
@@ -3618,7 +3686,9 @@ def main() -> int:
 
     # the main path's shapes: the paper's 2^25-slot species on 100,000
     # cells, and the codec's 1 MiB block of float32 state
-    kernels = [check_deposit(torch, dev, 1 << 25, 100_000)]
+    kernels = [check_deposit(torch, dev, 1 << 25, 100_000),
+               check_spawn(torch, dev)]
+    torch.cuda.empty_cache()
     kernels += check_bitshuffle(torch, dev, 1 << 20, 4)
     for k in kernels:
         print_kernel(k)
@@ -3680,7 +3750,8 @@ def main() -> int:
                 "byte_shuffle": bops.shuffle,
                 "byte_unshuffle": bops.unshuffle,
                 "flash_attention": fops.flash_attention,
-                "ssd_scan": sops.ssd_scan}
+                "ssd_scan": sops.ssd_scan,
+                "spawn": spops.spawn}
     for fn in counters.values():
         fn.launches = 0
     workdir = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-"))
@@ -3705,6 +3776,10 @@ def main() -> int:
     if launches["deposit_cic"] != expect_dep:
         raise AssertionError(f"deposit launches {launches['deposit_cic']} "
                              f"!= {expect_dep}")
+    # two spawn calls a step (electrons, ions)
+    if launches["spawn"] != SPAWN_LAUNCHES * 2 * res["steps"]:
+        raise AssertionError(f"spawn launches {launches['spawn']} != "
+                             f"{SPAWN_LAUNCHES} x 2 x {res['steps']} steps")
     # one launch a shuffled leaf in each of the two device-compressed
     # checkpoints (serial, and the manager's through the writer plane),
     # none of the one-block wrapper
@@ -3767,7 +3842,12 @@ def main() -> int:
     if dops.deposit.launches != expect_dep:
         raise AssertionError(f"in-situ deposit launches "
                              f"{dops.deposit.launches} != {expect_dep}")
+    if spops.spawn.launches != SPAWN_LAUNCHES * 2 * insitu["steps"]:
+        raise AssertionError(f"in-situ spawn launches "
+                             f"{spops.spawn.launches} != {SPAWN_LAUNCHES} "
+                             f"x 2 x {insitu['steps']} steps")
     insitu["deposit_launches"] = dops.deposit.launches
+    insitu["spawn_launches"] = spops.spawn.launches
     print(json.dumps({"insitu": insitu}))
     print(f"in-situ ({insitu['chunks']} chunks of "
           f"{insitu['steps'] // insitu['chunks']} steps at paper width): "
@@ -3858,6 +3938,7 @@ def main() -> int:
         "trainer_uninterrupted_flash":
             trainer["flash_launches_uninterrupted"]}}))
     on_path = {"deposit_cic": launches, "byte_shuffle_blocks": launches,
+               "spawn": launches,
                "flash_attention": path_launches, "ssd_scan": path_launches,
                "flash_attention_lse": {"flash_attention_lse":
                                        train_launch["flash_attention"]}}

@@ -7,6 +7,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.dxt import TRACER
+from repro_torch.kernels.spawn import ops as spawn_ops
 
 
 class Species(NamedTuple):
@@ -69,25 +70,11 @@ def push(sp: Species, E_at_p, dt: float, L: float, *,
 def spawn(sp: Species, new_x, new_v, new_w, n_new_mask):
     """Write new particles into dead slots (static shapes: the k-th new
     particle goes to the k-th dead slot; overflow is dropped & counted).
-    Returns (species, dropped).
+    Returns (species, dropped). On CUDA tensors one compaction kernel
+    (`kernels/spawn`) does it without a host sync.
 
     new_x/new_v/new_w: candidate arrays [M]; n_new_mask: [M] bool."""
     with TRACER.span("spawn", layer="pic"):
-        C = sp.capacity
-        dead_order = torch.argsort(sp.alive, stable=True)    # dead slots first
-        k = torch.cumsum(n_new_mask.to(torch.int32), 0) - 1  # rank among events
-        n_dead = torch.sum(sp.alive <= 0)
-        ok = n_new_mask & (k < n_dead)
-        slot = dead_order[torch.clamp(k, 0, C - 1)]
-        slot = torch.where(ok, slot, C)                      # C = trash slot
-        # rejected events all write slot C, which is cut off below
-        x = torch.cat([sp.x, sp.x.new_zeros(1)])
-        v = torch.cat([sp.v, sp.v.new_zeros(1, 3)])
-        w = torch.cat([sp.w, sp.w.new_zeros(1)])
-        al = torch.cat([sp.alive, sp.alive.new_zeros(1)])
-        x[slot] = new_x
-        v[slot] = new_v
-        w[slot] = new_w
-        al[slot] = 1.0
-        dropped = torch.sum(n_new_mask & ~ok)
-        return sp._replace(x=x[:C], v=v[:C], w=w[:C], alive=al[:C]), dropped
+        x, v, w, alive, dropped = spawn_ops.spawn(
+            sp.x, sp.v, sp.w, sp.alive, new_x, new_v, new_w, n_new_mask)
+        return sp._replace(x=x, v=v, w=w, alive=alive), dropped

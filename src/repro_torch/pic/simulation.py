@@ -93,7 +93,7 @@ def _split(s: int, num: int) -> list[int]:
 
 def split_key(key: torch.Tensor, num: int = 2) -> list[int]:
     """`num` 64-bit seeds derived from a uint32[2] key (reads it to host,
-    `pic.key`: one of a step's syncs; `particles.spawn` makes two more)."""
+    `pic.key`: a sync of the step)."""
     with TRACER.span("key", layer="pic"):
         return _split(_key_int(key), num)
 

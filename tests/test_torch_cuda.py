@@ -20,6 +20,8 @@ from repro_torch.kernels.deposit.ref import deposit_ref
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_plain,
                                                      reference_attention)
+from repro_torch.kernels.spawn import ops as spops
+from repro_torch.kernels.spawn.ref import spawn_ref
 from repro_torch.kernels.ssd_scan import ops as sops
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
@@ -400,6 +402,158 @@ def test_deposit_kernel_conserves_charge_at_the_paper_grid(cuda_device):
                                             17)
     assert dops.deposit.last_path == "cluster"
     _assert_deposit(got, ref, tw, ta, dx)
+
+
+# ------------------------------------------------------------- spawn
+def _spawn_inputs(dev, C, M, n_dead, n_events, seed, *, tail=False,
+                  offset=0):
+    """A species of C slots with n_dead dead (scattered, or the last ones)
+    and M candidates with n_events events, on `dev`; `offset` floats into
+    each buffer, so a start off the 16-byte alignment takes scalar loads."""
+    rng = np.random.default_rng(seed)
+    alive = np.ones(C, np.float32)
+    alive[np.arange(C - n_dead, C) if tail else
+          rng.permutation(C)[:n_dead]] = 0.0
+    mask = np.zeros(M, bool)
+    mask[rng.permutation(M)[:n_events]] = True
+    arrays = (rng.uniform(0, 1, C), rng.normal(size=(C, 3)),
+              rng.uniform(0.5, 1.5, C), alive, rng.uniform(0, 1, M),
+              rng.normal(size=(M, 3)), rng.uniform(0.5, 1.5, M), mask)
+
+    def put(a):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        if not offset:
+            return t
+        flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=dev)
+        flat[offset:] = t.reshape(-1)
+        return flat[offset:].view(t.shape)
+    return [put(a.astype(np.float32) if a.dtype != bool else a)
+            for a in arrays]
+
+
+def _assert_spawn_bit_exact(args, launches=4):
+    before = spops.spawn.launches
+    got = spops.spawn(*args)
+    assert spops.spawn.launches == before + launches
+    ref = spawn_ref(*args)
+    for name, g, r in zip(("x", "v", "w", "alive"), got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32)), name
+    assert got[4].dtype == torch.int64 and got[4].shape == ()
+    assert int(got[4]) == int(ref[4])
+    return got
+
+
+# events under, at and over the dead count; no event, no dead slot, all
+# dead; capacities that are not a multiple of the 4096-slot tile, up to
+# 2^22 + 7; fewer and more candidates than slots; dead slots at the tail
+@pytest.mark.parametrize("C,M,n_dead,n_events,tail", [
+    (1 << 16, 1 << 16, 5000, 300, False),
+    (1 << 16, 1 << 16, 4000, 4000, False),
+    (1 << 16, 1 << 16, 300, 5000, False),
+    (1 << 16, 1 << 16, 5000, 0, False),
+    (1 << 16, 1 << 16, 0, 100, False),
+    (1 << 16, 1 << 16, 1 << 16, 700, False),
+    (1 << 16, 1 << 16, 1 << 16, 1 << 16, False),
+    (4097, 4097, 2000, 1500, False),
+    (4095, 9001, 4000, 9001, False),
+    (12291, 5, 6000, 5, False),
+    ((1 << 22) + 7, (1 << 22) + 7, 1 << 21, 300_000, False),
+    ((1 << 22) + 7, (1 << 22) + 7, 3_000_000, 3_500_000, True),
+    (1 << 20, 1 << 20, 600_000, 40_000, True)])
+def test_spawn_kernel_is_bit_exact(cuda_device, C, M, n_dead, n_events,
+                                   tail):
+    args = _spawn_inputs(cuda_device, C, M, n_dead, n_events,
+                         C + n_dead + n_events, tail=tail)
+    _assert_spawn_bit_exact(args)
+
+
+# C or M of 0: the fill or the compaction has no tile to launch
+@pytest.mark.parametrize("C,M,launches", [(0, 4096, 3), (4096, 0, 3),
+                                          (0, 0, 1)])
+def test_spawn_kernel_with_no_slot_or_no_candidate(cuda_device, C, M,
+                                                   launches):
+    args = _spawn_inputs(cuda_device, C, M, C // 2, M // 2, 5)
+    if C:
+        got = _assert_spawn_bit_exact(args, launches)
+    else:   # the plain version indexes an empty sort: every event dropped
+        before = spops.spawn.launches
+        got = spops.spawn(*args)
+        assert spops.spawn.launches == before + launches
+        assert [t.shape for t in got[:4]] == [(0,), (0, 3), (0,), (0,)]
+    assert int(got[4]) == (M // 2 if C == 0 else 0)
+
+
+# starts 4 bytes past the 16-byte alignment: scalar accesses throughout
+@pytest.mark.parametrize("C", [1 << 16, 70_001])
+def test_spawn_kernel_unaligned(cuda_device, C):
+    args = _spawn_inputs(cuda_device, C, C, C // 3, C // 5, 11, offset=1)
+    assert all(t.data_ptr() % 16 for t in args[:4])
+    _assert_spawn_bit_exact(args)
+
+
+def test_spawn_kernel_after_absorbing_walls(cuda_device):
+    """Dead slots scattered as the walls leave them, through
+    `particles.spawn` (the kernel) against the plain version."""
+    from repro_torch.pic import particles
+    C = 1 << 20
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    sp = particles.init_species(g, C, C - 1000, L=1.0, v_thermal=40.0,
+                                charge=-1.0, mass=1.0, device=cuda_device)
+    sp, wall = particles.push(sp, torch.zeros_like(sp.x), 1e-3, 1.0,
+                              boundary="absorbing")
+    n_dead = int((sp.alive <= 0).sum())
+    assert float(wall) > 0 and n_dead > 20_000
+    gone = torch.nonzero(sp.alive[:C - 1000] <= 0)
+    assert gone.numel() > 0.5 * n_dead  # not only the tail
+    new_x = torch.rand(C, generator=g, device=cuda_device)
+    new_v = torch.randn(C, 3, generator=g, device=cuda_device)
+    new_w = torch.rand(C, generator=g, device=cuda_device)
+    mask = torch.rand(C, generator=g, device=cuda_device) < 0.015
+    before = spops.spawn.launches
+    out, dropped = particles.spawn(sp, new_x, new_v, new_w, mask)
+    assert spops.spawn.launches == before + 4
+    ref = spawn_ref(sp.x, sp.v, sp.w, sp.alive, new_x, new_v, new_w, mask)
+    for g_, r in zip((out.x, out.v, out.w, out.alive), ref):
+        assert torch.equal(g_.view(torch.int32), r.view(torch.int32))
+    assert int(dropped) == int(ref[4]) == max(int(mask.sum()) - n_dead, 0)
+
+
+def test_spawn_kernel_makes_no_host_sync(cuda_device):
+    args = _spawn_inputs(cuda_device, 1 << 20, 1 << 20, 1 << 19, 20_000, 6)
+    spops.spawn(*args)                   # the first call builds and loads
+    torch.cuda.synchronize()
+    before = spops.spawn.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            out = spops.spawn(*args)
+        # the mode sees the plain version's sync (a host scalar to the card)
+        with pytest.raises(RuntimeError):
+            spawn_ref(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert spops.spawn.launches == before + 3 * 4
+    assert torch.equal(out[3], spawn_ref(*args)[3])
+
+
+def test_spawn_wrapper_refuses_what_the_kernel_does_not_take(cuda_device,
+                                                             monkeypatch):
+    args = _spawn_inputs(cuda_device, 4096, 4096, 100, 50, 8)
+    x, v, w, alive, nx, nv, nw, mask = args
+    with pytest.raises(TypeError):
+        spops.spawn(x.double(), v, w, alive, nx, nv, nw, mask)
+    with pytest.raises(TypeError):
+        spops.spawn(x, v, w, alive, nx, nv, nw, mask.to(torch.uint8))
+    with pytest.raises(ValueError):   # not contiguous
+        spops.spawn(x, v.t().contiguous().t(), w, alive, nx, nv, nw, mask)
+    with pytest.raises(ValueError):   # on another device
+        spops.spawn(x, v, w, alive.cpu(), nx, nv, nw, mask)
+    with pytest.raises(ValueError):   # shapes
+        spops.spawn(x, v, w, alive, nx[:-1], nv, nw, mask)
+    monkeypatch.setattr(spops, "_LIMIT", 4096)
+    with pytest.raises(ValueError):   # C or M of 2**31 or more
+        spops.spawn(*args)
 
 
 # ------------------------------------------------- moe and cross blocks

@@ -15,6 +15,8 @@ from repro.pic import fields as jfields
 from repro.pic import grid as jgrid
 from repro.pic import particles as jpart
 from repro.pic import simulation as jsim
+from repro_torch.kernels.spawn import ops as spawn_ops
+from repro_torch.kernels.spawn.ref import spawn_ref
 from repro_torch.pic import collisions, fields, grid, particles
 from repro_torch.pic import simulation as sim
 from repro_torch.pic.convert import state_from_numpy, state_to_numpy
@@ -95,11 +97,21 @@ def test_push_matches_jax(boundary):
         assert tout.alive.sum() < ts.alive.sum()
 
 
-@pytest.mark.parametrize("n_dead,n_events", [(1000, 300), (50, 400), (0, 10)])
-def test_spawn_matches_jax_including_overflow(n_dead, n_events):
+# dead slots scattered (as absorbing walls and ionization leave them) or
+# at the tail (a fresh species); all dead, none dead; events under, at and
+# over the dead count
+@pytest.mark.parametrize("n_dead,n_events,tail", [
+    (1000, 300, False), (50, 400, False), (0, 10, False),
+    (2048, 300, False), (2048, 2048, False), (0, 0, False),
+    (700, 700, True), (100, 400, True)],
+    ids=["1000-300", "50-400", "0-10", "all_dead", "all_dead-all_events",
+         "none_dead-no_events", "tail-700-700", "tail-100-400"])
+def test_spawn_matches_jax_including_overflow(n_dead, n_events, tail):
     rng = np.random.default_rng(n_dead + n_events)
     C = 2048
     arrs = _species_np(rng, C, C - n_dead)
+    if tail:
+        arrs[3][:] = np.arange(C) < C - n_dead
     js, ts = _both(arrs, 1.0, 1836.0)
     new_x = rng.uniform(0, 1, C).astype(np.float32)
     new_v = rng.normal(size=(C, 3)).astype(np.float32)
@@ -115,6 +127,24 @@ def test_spawn_matches_jax_including_overflow(n_dead, n_events):
     assert int(tdrop) == int(jdrop) == max(n_events - n_dead, 0)
     # same slots written with the same values: exact
     _assert_species(tout, jout, rtol=0, atol=0)
+    assert float(tout.count()) == C - n_dead + min(n_events, n_dead)
+
+
+def test_spawn_on_cpu_tensors_takes_the_plain_version(monkeypatch):
+    calls = []
+
+    def plain(*args):
+        calls.append(args[0].shape[0])
+        return spawn_ref(*args)
+    monkeypatch.setattr(spawn_ops, "spawn_ref", plain)
+    monkeypatch.setattr(spawn_ops.spawn, "launches", 0)
+    cfg = sim.PicConfig(n_cells=32, capacity=512, n_electrons=128,
+                        n_ions=128, n_neutrals=256, rate_R=50.0)
+    state = sim.pic_run_chunk(sim.init_sim(cfg, 3, device="cpu"), cfg, 3)
+    # ionize spawns electrons and ions once each a step, on the CPU
+    assert calls == [512] * 6
+    assert spawn_ops.spawn.launches == 0
+    assert float(state.total_ionizations) > 0
 
 
 # --------------------------------------------------------------------- grid
