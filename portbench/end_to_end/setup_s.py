@@ -1,6 +1,7 @@
-"""Process start to the window's start: `import torch`, the kernels'
-build or load, the initial state on the device from the seed, the write
-plane's spawn, and a warm step, diagnostics write and small checkpoint."""
+"""Process start to the window's start: the runner's set-up. For PIC:
+`import torch`, the kernels' build or load, the initial state on the
+device from the seed, the write plane's spawn, and a warm step,
+diagnostics write and small checkpoint."""
 UNIT = "s"
 
 

@@ -1,5 +1,7 @@
-"""The window's wall time over the PIC steps completed in it, every
-diagnostics write and checkpoint the mix puts in it included."""
+"""The window's wall time over the runner's steps completed in it (its
+unit of work: a PIC step with every diagnostics write and checkpoint the
+mix puts in the window, a train step), all of the window's work
+included."""
 UNIT = "ms"
 
 

@@ -8,9 +8,9 @@ from the root of a checkout, on a card. It runs the cell as `run.py
 read the port's spans added under `metrics` (`PROGRAM_METRICS`, one
 reader each in `layer_metrics/`), and under `program` the device seconds
 by the program range that launched them and the seconds of each range.
-`runner.py` does not record what those readers read, so this run adds it
-around the runner: `traced["program"]` (`program_trace.reduce` of the
-same chrome trace), the program's ranges appended to `traced["spans"]`,
+The PIC runner (`runners/pic.py`) does not record what those readers
+read, so this run adds it around the runner: `traced["program"]`
+(`program_trace.reduce` of the same chrome trace), the program's ranges appended to `traced["spans"]`,
 so that the breakdown puts each idle gap down to the innermost range,
 the program's included, and `restore["decode_time"]`, the program's
 `DECOMPRESS_TIME` over the restore. Its profiler follows every thread,
@@ -18,10 +18,10 @@ so the engine's writer-pool ranges (`bp.compress`, `bp.encode`,
 `bp.append`) are seen; `run.py`'s follows the thread that starts it. A program without the spans
 gives no program metrics and raises nothing.
 
-For `run.py` to report these metrics, `runner.py` has to record the same
-three fields (in `_traced`, and `decode_time` in the restore block), and
-its `_profile_start` to follow every thread as `installed` does; then
-each metric gets its entry in `BENCHMARK.json`."""
+For `run.py` to report these metrics, `runners/pic.py` has to record the
+same three fields (in `_traced`, and `decode_time` in the restore
+block), and `trace.profile_start` to follow every thread as `installed`
+does; then each metric gets its entry in `BENCHMARK.json`."""
 from __future__ import annotations
 
 import argparse
@@ -57,14 +57,14 @@ def _decompress_s():
 
 @contextlib.contextmanager
 def installed():
-    """Wraps the runner's trace reduction, profiler start and the
+    """Wraps the trace reduction, the profiler's start and the
     checkpointers' restore as the module docstring says, until the block
     ends; yields the list each restore's decode seconds go to."""
     import torch
 
-    from portbench import program, program_trace, runner, trace
+    from portbench import program, program_trace, trace
     saved = [(trace, "reduce_chrome_trace", trace.reduce_chrome_trace),
-             (runner, "_profile_start", runner._profile_start)]
+             (trace, "profile_start", trace.profile_start)]
     saved += [(cls, "restore", cls.restore)
               for cls in (program.InProcess, program.Plane)]
     reduce0 = trace.reduce_chrome_trace
@@ -102,7 +102,7 @@ def installed():
         return restore
 
     trace.reduce_chrome_trace = reduce
-    runner._profile_start = profile_start
+    trace.profile_start = profile_start
     for cls in (program.InProcess, program.Plane):
         cls.restore = timed(cls.__dict__["restore"])
     try:
@@ -160,10 +160,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("program_spans: needs a CUDA device", file=sys.stderr)
         return 2
-    from portbench import runner
     with installed() as decodes:
-        res = runner.run(plan, args.seed, args.seconds, True, device="cuda",
-                         process_start=T0)
+        res = plan.runner.run(plan, args.seed, args.seconds, True,
+                              device="cuda", process_start=T0)
     if forbidden_modules():
         print(f"program_spans: the run loaded {forbidden_modules()}",
               file=sys.stderr)

@@ -9,8 +9,11 @@ the result: `correct`, `attempted`, `failed`, the cell's end-to-end
 metrics (`--trace 0`) or per-layer metrics (`--trace 1`), the device,
 with `--trace 1` the `breakdown` of the traced period, and `checks`:
 each number the comparison with the plain reference gave, beside its
-limit. The same numbers end standard error. Files go under `TMPDIR`;
-the kernels are built into `build/kernels/` of the checkout.
+limit. The same numbers end standard error. The cell's traffic mix
+names the runner that executes it (`runners/<name>.py`, whose
+`__init__.py` gives the contract); the lines of the runner's `summary`
+come before the result. Files go under `TMPDIR`; the kernels are built
+into `build/kernels/` of the checkout.
 """
 from __future__ import annotations
 
@@ -84,9 +87,8 @@ def main(argv=None) -> int:
               f"device(s); {torch.cuda.device_count()} visible",
               file=sys.stderr)
         return 2
-    from portbench import runner
-    res = runner.run(plan, args.seed, args.seconds, bool(args.trace),
-                     device="cuda", process_start=T0)
+    res = plan.runner.run(plan, args.seed, args.seconds, bool(args.trace),
+                          device="cuda", process_start=T0)
     bad = forbidden_modules()
     if bad:
         print(f"portbench: the run loaded {bad}", file=sys.stderr)
@@ -94,18 +96,8 @@ def main(argv=None) -> int:
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": plan.cell["chips"], "memory_peak_bytes": res["peak"]}
     line = result_line(plan, res, bool(args.trace), device)
-    rec = res["record"]
-    print(f"portbench: {rec['periods']} periods, {rec['steps']} steps in "
-          f"{rec['window_s']:.3f} s; set-up {rec['setup_s']:.3f} s; check "
-          f"{rec['check_s']:.3f} s; POSIX_BYTES_WRITTEN "
-          f"{rec['bytes_written']:.0f}")
-    for c in rec["checkpoints"]:
-        e = c["engine"]
-        print(f"portbench: checkpoint {c['step']}: "
-              f"{c['t_commit'] - c['t_start']:.3f} s to commit; engine "
-              f"write {e.get('write_s', 0):.3f} s, compress "
-              f"{e.get('compress_s', 0):.3f} s, writers "
-              f"{json.dumps(e.get('worker_s'))}")
+    for text in res.get("summary", ()):
+        print(text)
     for name, c in line["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}",
               file=sys.stderr)

@@ -1,5 +1,6 @@
-"""One run of a cell: set-up, the measured window, the restore, the
-check, and the result line's content.
+"""The PIC runner (`"runner": "pic"`): one run of a cell of BIT1's case,
+set-up, the measured window, the restore, the check, and the result
+line's content, to `runners/__init__.py`'s contract.
 
 The window runs whole periods of the cell's mix: each period is
 `diags_per_period` chunks of `steps_per_diag` PIC steps, each chunk
@@ -13,6 +14,7 @@ the second period)."""
 from __future__ import annotations
 
 import gc
+import json
 import os
 import pathlib
 import shutil
@@ -23,7 +25,11 @@ import numpy as np
 import torch
 
 from portbench import check, counts, trace
-from portbench.program import CHECKPOINTERS, Commits, Program
+from portbench.program import CHECKPOINTERS, Commits, Control, Program
+
+#: what `control.py` takes from a runner: the program, its control (the
+#: plain reference in bfloat16 in the program's place), and `run`
+__all__ = ["Control", "Program", "run"]
 
 SHM = pathlib.Path("/dev/shm")
 #: chunks the check follows, drawn from the seed
@@ -82,8 +88,9 @@ def _darshan(name: str, prefix=None) -> float:
 def run(plan, seed: int, seconds: float, traced: bool, *, device="cuda",
         program=Program, process_start=None) -> dict:
     """The result's `correct`, `attempted`, `failed` and `checks`, the
-    device's memory peak, and the run's record for the metric readers
-    (`record`)."""
+    device's memory peak, the run's record for the metric readers
+    (`record`), and the lines `run.py` prints before the result
+    (`summary`)."""
     t0 = time.perf_counter() if process_start is None else process_start
     cfg, mix = plan.config, plan.mix
     shm0 = _shm_entries()
@@ -115,7 +122,7 @@ def run(plan, seed: int, seconds: float, traced: bool, *, device="cuda",
         n = mix["steps_per_diag"]
         while True:
             if traced and periods == 1 and ckpt is None:
-                prof = _profile_start()
+                prof = trace.profile_start()
             for _ in range(per):
                 slot, k = held.draw(n) if step else (None, 0)
                 with spans("pic.steps"):
@@ -140,10 +147,10 @@ def run(plan, seed: int, seconds: float, traced: bool, *, device="cuda",
                 if ckpt is not None:
                     with spans("ckpt.wait"):
                         ckpt.wait()
-                _profile_stop(prof)
+                trace.profile_stop(prof)
             if ckpt is not None:
                 if traced and periods == 0:
-                    prof = _profile_start()
+                    prof = trace.profile_start()
                 held.ckpts[step] = state
                 t_call = time.perf_counter()
                 with spans("ckpt.save"):
@@ -227,7 +234,24 @@ def run(plan, seed: int, seconds: float, traced: bool, *, device="cuda",
     _stop_resource_tracker()
     checks = check.judged(numbers)
     return {"correct": check.correct(checks), "attempted": attempted,
-            "failed": failed, "peak": peak, "record": rec, "checks": checks}
+            "failed": failed, "peak": peak, "record": rec, "checks": checks,
+            "summary": _summary(rec)}
+
+
+def _summary(rec: dict) -> list:
+    """The window's periods, steps and times, and each checkpoint's."""
+    out = [f"portbench: {rec['periods']} periods, {rec['steps']} steps in "
+           f"{rec['window_s']:.3f} s; set-up {rec['setup_s']:.3f} s; check "
+           f"{rec['check_s']:.3f} s; POSIX_BYTES_WRITTEN "
+           f"{rec['bytes_written']:.0f}"]
+    for c in rec["checkpoints"]:
+        e = c["engine"]
+        out.append(f"portbench: checkpoint {c['step']}: "
+                   f"{c['t_commit'] - c['t_start']:.3f} s to commit; engine "
+                   f"write {e.get('write_s', 0):.3f} s, compress "
+                   f"{e.get('compress_s', 0):.3f} s, writers "
+                   f"{json.dumps(e.get('worker_s'))}")
+    return out
 
 
 def _warm(prog, ckpt, seed: int, work: pathlib.Path):
@@ -253,34 +277,11 @@ def _warm(prog, ckpt, seed: int, work: pathlib.Path):
     shutil.rmtree(work)
 
 
-def _profile_start():
-    from torch.profiler import ProfilerActivity, profile, record_function
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.__enter__()
-    span = record_function(trace.TRACED)
-    span.__enter__()
-    return prof, span
-
-
-def _profile_stop(prof):
-    p, span = prof
-    span.__exit__(None, None, None)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    p.__exit__(None, None, None)
-
-
 def _traced(prof, diags: dict, steps: int, work: pathlib.Path) -> dict:
     """The traced window's device work and spans, and what the counts of
     its steps need: the live particles of each species at its start and
     the ionizations a step in it."""
-    path = work / "trace.json"
-    prof[0].export_chrome_trace(str(path))
-    out = trace.reduce_chrome_trace(path)
-    path.unlink()
+    out = trace.reduced(prof, work)
     at = sorted(diags)
     start = at[at.index(steps) if steps in at else 0]
     end = start + steps

@@ -4,7 +4,7 @@ import dataclasses
 
 import pytest
 
-from portbench import cells, runner
+from portbench import cells
 from portbench.run import result_line
 
 BENCH = cells.load_benchmark()
@@ -18,7 +18,7 @@ def test_a_small_traced_run_on_the_card(cuda, cell):
     plan = cells.plan(BENCH, cell)
     plan = dataclasses.replace(plan, config={**plan.config, **SMALL},
                                mix={**plan.mix, "steps_per_diag": 10})
-    res = runner.run(plan, 2**33 + 1, 0.0, True, device=cuda)
+    res = plan.runner.run(plan, 2**33 + 1, 0.0, True, device=cuda)
     assert res["correct"], res["checks"]
     line = result_line(plan, res, True, {"platform": "gpu"})
     assert set(line["metrics"]) == {m["name"] for m, _ in plan.per_layer}

@@ -14,13 +14,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 PROBE = """
 import dataclasses, json, pathlib, sys, tempfile
 sys.path[:0] = [{src!r}, {root!r}]
-from portbench import cells, run, runner
-runner.SHM = pathlib.Path(tempfile.mkdtemp())   # others' shared memory aside
+from portbench import cells, run
 plan = cells.plan(cells.load_benchmark(), "bit1_q4.steps")
+plan.runner.SHM = pathlib.Path(tempfile.mkdtemp())   # others' shm aside
 plan = dataclasses.replace(plan, config={{**plan.config, "n_cells": 64,
     "capacity": 1024, "n_electrons": 200, "n_ions": 200, "n_neutrals": 200}},
     mix={{**plan.mix, "steps_per_diag": 2, "diags_per_period": 2}})
-res = runner.run(plan, 5, 0.0, True, device="cpu")
+res = plan.runner.run(plan, 5, 0.0, True, device="cpu")
 for m, r in plan.per_layer + plan.end_to_end:
     r.read(res["record"])
 print(json.dumps({{"correct": res["correct"],

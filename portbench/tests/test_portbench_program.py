@@ -10,7 +10,8 @@ import json
 
 import pytest
 
-from portbench import cells, program_spans, program_trace, runner, trace
+from portbench import cells, program_spans, program_trace, trace
+from portbench.runners import pic as runner
 
 BENCH = cells.load_benchmark()
 READERS = sorted(program_spans.PROGRAM_METRICS)
@@ -190,7 +191,7 @@ def test_a_cpu_run_through_program_spans_reads_the_save(monkeypatch,
     assert got["restore_decode_s"] > 0
     assert dict(line["program"]["range_s"])["pic.spawn"] > 0
     # the wrappers are gone once the block ends
-    assert runner._profile_start.__module__ == "portbench.runner"
+    assert trace.profile_start.__module__ == "portbench.trace"
 
 
 @pytest.mark.cuda

@@ -8,7 +8,8 @@ import itertools
 import pytest
 import torch
 
-from portbench import cells, check, program, runner
+from portbench import cells, check, program
+from portbench.runners import pic as runner
 
 BENCH = cells.load_benchmark()
 SEED = 2**31 + 977
@@ -54,6 +55,13 @@ def test_a_sound_run_is_correct(cell):
     assert res["failed"] == 0 and res["attempted"] > 0
     rec = res["record"]
     assert rec["periods"] == 2 and rec["steps"] == 30
+    # the lines run.py prints before the result: the window, then each
+    # checkpoint
+    assert res["summary"][0].startswith(
+        "portbench: 2 periods, 30 steps in ")
+    assert "; POSIX_BYTES_WRITTEN " in res["summary"][0]
+    assert [x.split(":")[1] for x in res["summary"][1:]] == [
+        f" checkpoint {c['step']}" for c in rec["checkpoints"]]
     for m, reader in plan.end_to_end:
         assert reader.read(rec) > 0, m["name"]
     assert set(res["checks"]) == set(check.LIMITS) - (

@@ -1,10 +1,12 @@
 """Spans the benchmark puts around its calls into the program's layers,
-and the reduction of a `torch.profiler` trace to the device's work.
+the profiler's start and stop around a traced stretch, and the reduction
+of its `torch.profiler` trace to the device's work.
 
 A span is recorded on the host clock (seconds from the window's start)
 in every run and, as a `record_function` range, in the profiler's trace
 when one is running, so device intervals can be matched to the span the
-host was in."""
+host was in. Every runner traces through `profile_start`,
+`profile_stop` and `reduced`."""
 from __future__ import annotations
 
 import contextlib
@@ -37,6 +39,42 @@ class Spans:
 
     def total(self, names) -> float:
         return sum(t1 - t0 for n, t0, t1 in self.items if n in names)
+
+
+def profile_start():
+    """A profiler recording the CPU and, where there is a card, the
+    device, with the `TRACED` range open: the traced stretch starts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.__enter__()
+    span = record_function(TRACED)
+    span.__enter__()
+    return prof, span
+
+
+def profile_stop(prof):
+    """Closes the `TRACED` range and, once the device is done, the
+    profiler."""
+    import torch
+    p, span = prof
+    span.__exit__(None, None, None)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    p.__exit__(None, None, None)
+
+
+def reduced(prof, work) -> dict:
+    """The stopped profiler's trace, exported to `work` as a chrome trace,
+    reduced by `reduce_chrome_trace` and removed."""
+    path = work / "trace.json"
+    prof[0].export_chrome_trace(str(path))
+    out = reduce_chrome_trace(path)
+    path.unlink()
+    return out
 
 
 def reduce_chrome_trace(path) -> dict:
