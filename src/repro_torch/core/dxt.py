@@ -77,7 +77,8 @@ DEFAULT_CAPACITY = int(os.environ.get("JBP_DXT_CAPACITY", 1 << 15))
 SPAN_OPS = ("snapshot", "compress", "transport", "prepare", "seal",
             "commit", "pipeline", "cache_fetch", "serve", "read_task",
             "device_shuffle", "d2h_wait", "encode", "append", "decode",
-            "publish", "h2d", "deposit", "key", "ionize", "spawn", "push")
+            "publish", "h2d", "deposit", "key", "ionize", "spawn", "push",
+            "step", "fwd_bwd", "adamw", "ssd_bwd", "flash_bwd")
 POSIX_OPS = ("open", "read", "write", "seek", "flush", "fsync", "close")
 
 

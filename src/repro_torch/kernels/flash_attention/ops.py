@@ -8,7 +8,8 @@ With grad enabled and an input that requires it, the call goes through
 `FlashAttention`, a `torch.autograd.Function`: its forward is the same
 kernel (or plain version), which also writes the row log-sum-exp, and its
 backward is `ref.flash_attention_bwd_plain`, the plain mirror of the JAX
-package's `_flash_bwd_impl` (jnp there, not a Pallas kernel).
+package's `_flash_bwd_impl` (jnp there, not a Pallas kernel), inside an
+`attn.flash_bwd` span (`core/dxt.py`).
 
 A fake tensor (`torch._subclasses.FakeTensor` or the meta device, on any
 device: the dry-run's stand-ins, which have no memory to launch on) goes
@@ -24,6 +25,7 @@ import functools
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.core.dxt import TRACER
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_plain, flash_attention_plain, flash_fwd_plain)
@@ -145,8 +147,10 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         causal, qc, kc = ctx.args
-        dq, dk, dv = flash_attention_bwd_plain(
-            q, k, v, out, lse, do, causal=causal, q_chunk=qc, kv_chunk=kc)
+        with TRACER.span("flash_bwd", layer="attn"):
+            dq, dk, dv = flash_attention_bwd_plain(
+                q, k, v, out, lse, do, causal=causal, q_chunk=qc,
+                kv_chunk=kc)
         return dq, dk, dv, None, None, None
 
 

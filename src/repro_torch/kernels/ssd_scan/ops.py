@@ -12,6 +12,7 @@ through `SsdScan`, a `torch.autograd.Function` whose forward is the same
 kernel (or plain version) and whose backward recomputes the plain
 `ssd_chunked` on the same padded inputs and differentiates it: the JAX
 package differentiates `ssd_chunked` by autodiff (`models/ssm.py`).
+The backward runs inside an `ssm.ssd_bwd` span (`core/dxt.py`).
 
 A fake tensor (`torch._subclasses.FakeTensor` or the meta device: the
 dry-run's stand-ins) goes to `torch.ops.repro_torch.ssd_scan`, a
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.core.dxt import TRACER
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import COMPUTE_DTYPE, ssd_chunked
 
@@ -192,6 +194,11 @@ class SsdScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dfinal):
+        with TRACER.span("ssd_bwd", layer="ssm"):
+            return SsdScan._backward(ctx, dy, dfinal)
+
+    @staticmethod
+    def _backward(ctx, dy, dfinal):
         saved = ctx.saved_tensors
         inputs = [t.detach().requires_grad_(need) if t is not None else None
                   for t, need in zip(saved, ctx.needs_input_grad[1:])]

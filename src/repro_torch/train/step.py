@@ -3,7 +3,9 @@ error-feedback gradient compression, AdamW. The port of the JAX package's
 `train/step.py`.
 
 The step updates the state in place (params, moments, residuals, step)
-and returns it with the step's metrics as 0-d tensors. Gradients are
+and returns it with the step's metrics as 0-d tensors. It runs inside a
+`train.step` span holding `train.fwd_bwd` (the gradients) and
+`train.adamw` (the update), `core/dxt.py`'s profiler ranges. Gradients are
 taken with `torch.autograd.grad` of detached aliases of the params, so the
 state's tensors never carry `requires_grad`.
 
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.dxt import TRACER
 from repro_torch.launch.sharding import gathered_once_tree
 from repro_torch.meshctx import (BATCH, dtensor_scope, full_values,
                                  is_dtensor, mesh_of, reduce_partials,
@@ -45,7 +48,7 @@ def _grads_and_metrics(cfg, params, batch, kw):
     leaves them: the layers' reduced, the tables' partial sums over the
     batch axes) and the metrics."""
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-    with torch.enable_grad():
+    with torch.enable_grad(), TRACER.span("fwd_bwd", layer="train"):
         loss, metrics = M.loss_fn(tree_unflatten(params, leaves), cfg, batch,
                                   **kw)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -99,7 +102,7 @@ def make_train_step(cfg, hp: AdamWConfig, *, grad_compression: bool = False,
             _check_mesh(mesh)
             from repro_torch.train.state import shard_batch
             batch = shard_batch(batch, mesh)
-        with dtensor_scope(mesh):
+        with TRACER.span("step", layer="train"), dtensor_scope(mesh):
             return _step(state, batch, mesh)
 
     def _step(state, batch, mesh):
@@ -138,7 +141,7 @@ def make_train_step(cfg, hp: AdamWConfig, *, grad_compression: bool = False,
         else:
             metrics = {n: torch.stack(full[j::len(names)]).mean()
                        for j, n in enumerate(names)}
-        with torch.no_grad():
+        with torch.no_grad(), TRACER.span("adamw", layer="train"):
             if grad_compression:
                 grads, residuals = compress_with_feedback(
                     grads, state["residuals"])

@@ -1,8 +1,9 @@
 """The port's spans on the profiler's clock (`core/dxt.py`'s sink): a PIC
-step, a checkpoint save and a restore under `torch.profiler` each show
-their `<layer>.<op>` ranges in the exported trace, nested where the work
-nests; with no profiler, the ring off and no metrics asked for, a span is
-the shared no-op span and reads no clock; `core.dxt` loads without torch;
+step, a checkpoint save, a restore and a train step under
+`torch.profiler` each show their `<layer>.<op>` ranges in the exported
+trace, nested where the work nests; with no profiler, the ring off and
+no metrics asked for, a span is the shared no-op span and reads no
+clock; `core.dxt` loads without torch;
 the restore's decode is counted in `DECOMPRESS_TIME`; and the encode's
 overlap counts only blocks whose successor was still in flight."""
 import json
@@ -19,13 +20,18 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.configs.base import get_config, reduce_for_smoke
 from repro_torch.core import EngineConfig
 from repro_torch.core import compression as C
 from repro_torch.core import dxt
 from repro_torch.core.darshan import CTR, MONITOR
 from repro_torch.core.dxt import _NULL_SPAN, SPAN_OPS, TRACER
 from repro_torch.core.metrics import METRICS
+from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.pic import simulation as sim
+from repro_torch.train.state import init_train_state
+from repro_torch.train.step import make_train_step
 
 CFG = sim.PicConfig(n_cells=64, capacity=1024, n_electrons=512, n_ions=512,
                     n_neutrals=512, rate_R=0.5, dt=1e-2)
@@ -246,3 +252,72 @@ def test_overlap_counts_blocks_whose_successor_was_in_flight(monkeypatch):
                                       block=4096)
     assert stats.overlap_s == 1.0
     assert stats.device_bytes == 12288
+
+
+#: zamba2-2.7b at the smoke size: 4 Mamba2 layers in 2 units of 2
+TRAIN_CFG = reduce_for_smoke(get_config("zamba2-2.7b"))
+
+
+def _train_step():
+    """A remat'd train step of the hybrid at the smoke size, its state
+    and a batch of 2 x 32 tokens, on the CPU."""
+    step_fn = make_train_step(TRAIN_CFG, AdamWConfig(), q_chunk=32,
+                              kv_chunk=32, ssd_chunk=16)
+    state = init_train_state(TRAIN_CFG, 3, device="cpu")
+    batch = SyntheticTokens(TRAIN_CFG.padded_vocab, 32, 2, seed=3).batch_at(0)
+    return step_fn, state, {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def test_train_step_ranges_nest_as_the_step_runs(tmpdir_path):
+    """`train.step` holds `train.fwd_bwd` and then `train.adamw`; each
+    layer's SSD backward (`ssm.ssd_bwd`) and each unit's flash backward
+    (`attn.flash_bwd`) run inside `train.fwd_bwd` (on the CPU the
+    backward runs on the calling thread)."""
+    step_fn, state, batch = _train_step()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step_fn(state, batch)
+    r = _ranges(prof, tmpdir_path)
+    units = TRAIN_CFG.n_layers // TRAIN_CFG.shared_attn_interval
+    counts = {n: len(_named(r, n)) for n in
+              ("train.step", "train.fwd_bwd", "train.adamw", "ssm.ssd_bwd",
+               "attn.flash_bwd")}
+    assert counts == {"train.step": 1, "train.fwd_bwd": 1, "train.adamw": 1,
+                      "ssm.ssd_bwd": TRAIN_CFG.n_layers,
+                      "attn.flash_bwd": units}
+    assert _each_inside_one(r, "train.fwd_bwd", "train.step")
+    assert _each_inside_one(r, "train.adamw", "train.step")
+    assert _each_inside_one(r, "ssm.ssd_bwd", "train.fwd_bwd")
+    assert _each_inside_one(r, "attn.flash_bwd", "train.fwd_bwd")
+    (fb,), (ad,) = _named(r, "train.fwd_bwd"), _named(r, "train.adamw")
+    assert fb[2] <= ad[1]
+
+
+def test_train_step_with_tracing_off_opens_no_range(monkeypatch):
+    """No profiler, the ring off, no metrics: every span of the step is
+    the shared no-op span and no program range is opened."""
+    assert not TRACER.enabled and not METRICS.enabled
+    opened = []
+    real_rf = torch.autograd.profiler.record_function
+
+    class Recorded(real_rf):
+        def __init__(self, name, *a, **kw):
+            opened.append(name)
+            super().__init__(name, *a, **kw)
+
+    spans = []
+    real_span = TRACER.span
+
+    def span(*a, **kw):
+        spans.append((a, real_span(*a, **kw)))
+        return spans[-1][1]
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", Recorded)
+    monkeypatch.setattr(TRACER, "span", span)
+    step_fn, state, batch = _train_step()
+    step_fn(state, batch)
+    units = TRAIN_CFG.n_layers // TRAIN_CFG.shared_attn_interval
+    assert sorted(a[0] for a, _ in spans) == sorted(
+        ["step", "fwd_bwd", "adamw"] + ["ssd_bwd"] * TRAIN_CFG.n_layers
+        + ["flash_bwd"] * units)
+    assert all(sp is _NULL_SPAN for _, sp in spans)
+    assert not [n for n in opened if RANGE.match(n)]
