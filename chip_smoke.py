@@ -640,15 +640,10 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
 
     ckpt_dir = workdir / "ckpt"
     saved = state._asdict()
-    # the leaves the checkpoint shuffles on the device, one launch each:
-    # tensors of rank >= 1, not bfloat16 (`save_checkpoint`), with items
-    # of more than one byte and at least one block (`compression`); at
-    # paper_config 13: x, v, w, alive of the 3 species and the RNG key
-    shuffled_leaves = sum(
-        1 for a in flatten_state(saved).values()
-        if isinstance(a, torch.Tensor) and a.ndim > 0
-        and a.dtype != torch.bfloat16 and a.element_size() > 1
-        and a.numel() > 0)
+    # the chunks the checkpoint shuffles on the device, one launch each:
+    # at paper_config 12 x 16 + 2, the row chunks of x, v, w, alive of the
+    # 3 species and of the RNG key's 2 rows
+    shuffled_chunks = _shuffled_chunks(saved, n_io_ranks)
     before = MONITOR.report()["total"].get(CTR.COMPRESS_DEVICE_BYTES, 0.0)
     timed("checkpoint_s", lambda: save_checkpoint(
         ckpt_dir, saved, int(state.step), n_io_ranks=n_io_ranks,
@@ -718,24 +713,28 @@ def run_main_path(torch, dev, workdir: pathlib.Path, cfg=None) -> dict:
             par["steps"], "diag_calls": diag_calls, "parallel_io": par,
             "device_bytes": dev_bytes, "restored_from": at,
             "original_io": original_io, "state": restored,
-            "shuffled_leaves": shuffled_leaves, "saved": flat_saved,
+            "shuffled_chunks": shuffled_chunks, "saved": flat_saved,
+            "n_io_ranks": n_io_ranks,
             "dump_step": dump_step, "mesh_vars": mesh_vars,
             "counts_start": {k: d0[k] for k in d0 if k.startswith("count/")},
             "counts_end": {k: d1[k] for k in d1 if k.startswith("count/")},
             "ionizations": d1["ionizations"]}
 
 
-def _shuffled_blocks_on_disk(ckpt: pathlib.Path, flat: dict, torch) -> dict:
+def _shuffled_blocks_on_disk(ckpt: pathlib.Path, flat: dict, torch,
+                             n_io_ranks: int) -> dict:
     """Walk the checkpoint's JBPC block headers (no decompression) and
-    account for each block the device shuffled. The save hands each tensor
-    leaf (rank >= 1, not bfloat16) to the engine whole, one chunk, and
-    `shuffle_blocks` shuffles each of its codec blocks whose length is a
-    multiple of the item size (items wider than a byte). On disk such a
-    block is either blosc (whose decode unshuffles, so the encoder clears
-    the flag and the bytes equal the host path's) or, when LZ did not pay,
-    stored raw with FLAG_PRESHUFFLED. Any other block must carry no flag.
-    Returns the counts: launches (leaves with a block to shuffle), the
-    blocks they shuffled, and how each is stored."""
+    account for each block the device shuffled. The save row-splits each
+    tensor leaf (rank >= 1, not bfloat16) by I/O rank as a host leaf is,
+    min(ranks, rows) chunks at `_leaf_chunks`' bounds, and `shuffle_blocks`
+    shuffles each chunk's codec blocks whose length is a multiple of the
+    item size (items wider than a byte), one launch a chunk. On disk such
+    a block is either blosc (whose decode unshuffles, so the encoder
+    clears the flag and the bytes equal the host path's) or, when LZ did
+    not pay, stored raw with FLAG_PRESHUFFLED. Any other block must carry
+    no flag. Returns the counts: launches (chunks with a block to
+    shuffle), the blocks they shuffled, and how each is stored."""
+    import numpy as np
     from repro_torch.core import compression as C
     from repro_torch.core.bp_engine import BpReader
     n = {"launches": 0, "device_shuffled": 0, "preshuffled_flag": 0,
@@ -748,16 +747,18 @@ def _shuffled_blocks_on_disk(ckpt: pathlib.Path, flat: dict, torch) -> dict:
                         and leaf.dtype != torch.bfloat16)
             chunks = list(r.iter_chunks(step, var))
             if dev_leaf:
-                if len(chunks) != 1:
-                    raise AssertionError(f"{var}: {len(chunks)} chunks for "
-                                         f"a device leaf, expected 1")
-                isz = leaf.element_size()
-                nbytes = leaf.numel() * isz
-                spans = [(i, min(i + C.DEFAULT_BLOCK, nbytes))
-                         for i in range(0, max(nbytes, 1), C.DEFAULT_BLOCK)]
-                shuf = [isz > 1 and hi > lo and (hi - lo) % isz == 0
-                        for lo, hi in spans]
-                n["launches"] += any(shuf)
+                rows = leaf.shape[0]
+                k = min(n_io_ranks, rows) or 1
+                bounds = np.linspace(0, rows, k + 1).astype(int)
+                want = [(i, (int(lo),) + (0,) * (leaf.ndim - 1))
+                        for i, (lo, hi) in enumerate(zip(bounds[:-1],
+                                                         bounds[1:]))
+                        if hi > lo]
+                got = sorted((c.rank, tuple(c.offset)) for c in chunks)
+                if got != want:
+                    raise AssertionError(f"{var}: chunks at {got}, the row "
+                                         f"split over {n_io_ranks} ranks "
+                                         f"is {want}")
             for ch in chunks:
                 heads = list(C.iter_block_headers(
                     r._read_payload(ch.agg, ch.file_offset, ch.nbytes)))
@@ -767,14 +768,22 @@ def _shuffled_blocks_on_disk(ckpt: pathlib.Path, flat: dict, torch) -> dict:
                         raise AssertionError(f"{var}: a host leaf's block "
                                              f"carries flags")
                     continue
+                isz = leaf.element_size()
+                nbytes = int(np.prod(ch.extent)) * isz
+                spans = [(i, min(i + C.DEFAULT_BLOCK, nbytes))
+                         for i in range(0, max(nbytes, 1), C.DEFAULT_BLOCK)]
+                shuf = [isz > 1 and hi > lo and (hi - lo) % isz == 0
+                        for lo, hi in spans]
+                n["launches"] += any(shuf)
                 if [h[4] for h in heads] != [hi - lo for lo, hi in spans]:
-                    raise AssertionError(f"{var}: block sizes differ from "
-                                         f"the device's {C.DEFAULT_BLOCK}-"
-                                         f"byte spans")
-                for (_o, cid, _i, flags, _raw, _c), s in zip(heads, shuf):
+                    raise AssertionError(f"{var}: block sizes of the chunk "
+                                         f"at {ch.offset} differ from the "
+                                         f"device's {C.DEFAULT_BLOCK}-byte "
+                                         f"spans")
+                for (_o, cid, _i, flags, _raw, _c), sh in zip(heads, shuf):
                     flagged = bool(flags & C.FLAG_PRESHUFFLED)
                     codec = C.CODEC_NAMES[cid]
-                    if not s:
+                    if not sh:
                         if flagged:
                             raise AssertionError(f"{var}: FLAG_PRESHUFFLED "
                                                  f"on a block the device "
@@ -901,11 +910,11 @@ def run_tools(torch, dev, workdir: pathlib.Path, res: dict) -> dict:
         raise AssertionError(f"jbpfsck --deep {ckpt}: exit {rc}, issues "
                              f"{doc['issues']}")
     out["t"]["jbpfsck_deep_s"] = secs
-    disk = _shuffled_blocks_on_disk(ckpt, flat, torch)
-    if disk["launches"] != res["shuffled_leaves"]:
-        raise AssertionError(f"{disk['launches']} leaves with blocks to "
+    disk = _shuffled_blocks_on_disk(ckpt, flat, torch, res["n_io_ranks"])
+    if disk["launches"] != res["shuffled_chunks"]:
+        raise AssertionError(f"{disk['launches']} chunks with blocks to "
                              f"shuffle, the main path counted "
-                             f"{res['shuffled_leaves']} launches")
+                             f"{res['shuffled_chunks']} launches")
     out["jbpfsck"] = dict(disk, steps=len(doc["committed_steps"]))
 
     # --- jbpd: one daemon over both series, 4 concurrent shm clients
@@ -1291,6 +1300,7 @@ def run_parallel_io(torch, workdir: pathlib.Path, full_cfg, full_state,
         out["device_bytes"] = (MONITOR.report()["total"].get(
             CTR.COMPRESS_DEVICE_BYTES, 0.0) - dev0)
         out["shuffle_launches"] = bops.shuffle_blocks.launches - shuf0
+        out["want_shuffles"] = _shuffled_chunks(saved, n_io_ranks)
         out["ckpt_transport_bytes"] = {"shm": shm1[0] - shm0[0],
                                        "pickle": shm1[1] - shm0[1]}
         out["manager"] = {**mgr.stats,
@@ -3258,15 +3268,26 @@ def mesh_decode_checks(torch, dev, cfg, ranks: list) -> dict:
     return res
 
 
-def _shuffled_chunks(state) -> int:
+def _shuffled_chunks(state, n_io_ranks: int = 1) -> int:
     """The `shuffle_blocks` launches a device-compressed save of `state`
-    makes: one a tensor leaf or layer of rank >= 1 that is not bfloat16."""
+    makes: one a chunk of a tensor leaf or layer of rank >= 1 that is not
+    bfloat16, with items wider than a byte. A layer is one chunk. A leaf
+    off any mesh is row-split over `n_io_ranks` as a host leaf is, into
+    min(ranks, rows) chunks; a rank's shard of a sharded leaf is one
+    chunk (`n_io_ranks` 1)."""
     import torch
     from repro_torch.ckpt.checkpoint import Stacked, flatten_state
+
+    def shuffled(t) -> bool:
+        return (isinstance(t, torch.Tensor) and t.ndim > 0
+                and t.dtype != torch.bfloat16 and t.dtype.itemsize > 1
+                and t.numel() > 0)
     n = 0
     for leaf in flatten_state(state).values():
-        for p in (leaf.parts if isinstance(leaf, Stacked) else [leaf]):
-            n += int(p.ndim > 0 and p.dtype != torch.bfloat16)
+        if isinstance(leaf, Stacked):
+            n += sum(shuffled(p) for p in leaf.parts)
+        elif shuffled(leaf):
+            n += min(n_io_ranks, leaf.shape[0])
     return n
 
 
@@ -3385,8 +3406,8 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
              smi: str) -> dict:
     """The mesh phase: an elastic 1 -> 4 -> 1-rank round trip of the
     trainer's step-2 checkpoint (written on the card by the run that
-    crashed, one chunk a leaf or layer), then the uninterrupted run's
-    remaining steps on the card from the round trip's state.
+    crashed: row chunks a leaf, one chunk a layer), then the uninterrupted
+    run's remaining steps on the card from the round trip's state.
     1. 1 -> 4: a 4-rank gloo job (processes of this script, a FileStore
        in the workdir, tensors on MESH_DEVICE) restores it onto a (2, 2)
        ("data", "model") mesh under `train_state_shardings` (each rank's
@@ -3535,7 +3556,7 @@ def run_mesh(torch, dev, workdir: pathlib.Path, trainer: dict,
                                        ranks, digests, dst_step, at + 1)
         del at_state, card_step
         want_flash = (tcfg.steps - at) * train_launches(cfg)["flash_attention"]
-        want_shuffles = _shuffled_chunks(state)
+        want_shuffles = _shuffled_chunks(state, resumer.manager.n_io_ranks)
         if flash != want_flash or shuffles != want_shuffles:
             raise AssertionError(f"mesh resume launches: flash {flash} != "
                                  f"{want_flash} or shuffle_blocks {shuffles}"
@@ -3780,19 +3801,21 @@ def main() -> int:
     if launches["spawn"] != SPAWN_LAUNCHES * 2 * res["steps"]:
         raise AssertionError(f"spawn launches {launches['spawn']} != "
                              f"{SPAWN_LAUNCHES} x 2 x {res['steps']} steps")
-    # one launch a shuffled leaf in each of the two device-compressed
+    # one launch a shuffled row chunk in each of the two device-compressed
     # checkpoints (serial, and the manager's through the writer plane),
     # none of the one-block wrapper
     par = res["parallel_io"]
-    if (launches["byte_shuffle_blocks"] != 2 * res["shuffled_leaves"]
-            or par["shuffle_launches"] != res["shuffled_leaves"]
+    if (launches["byte_shuffle_blocks"]
+            != res["shuffled_chunks"] + par["want_shuffles"]
+            or par["shuffle_launches"] != par["want_shuffles"]
             or launches["byte_shuffle_block"] != 0):
         raise AssertionError(f"shuffle launches: shuffle_blocks "
                              f"{launches['byte_shuffle_blocks']} (parallel "
                              f"checkpoint {par['shuffle_launches']}) for "
-                             f"{res['shuffled_leaves']} leaves a checkpoint,"
-                             f" shuffle_block {launches['byte_shuffle_block']}"
-                             f" != 0")
+                             f"{res['shuffled_chunks']} + "
+                             f"{par['want_shuffles']} chunks in the two "
+                             f"checkpoints, shuffle_block "
+                             f"{launches['byte_shuffle_block']} != 0")
     t = res["timings_s"]
     compute_steps = res["timed_steps"]
     ms_step = 1e3 * (t["compute_s"] + t["restart_compute_s"]) / compute_steps

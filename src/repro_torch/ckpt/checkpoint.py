@@ -3,12 +3,13 @@
 The checkpoint is one openPMD-style step whose variables are the flattened
 state leaves ("electrons/.x", "key", ...), named exactly as the JAX
 package's `flatten_state` names them, so a checkpoint written by either
-package restores in the other. Host leaves are written as row-split chunks
-by logical I/O rank, so N ranks -> M aggregator subfiles exactly as the
+package restores in the other. Leaves are written as row-split chunks by
+logical I/O rank, so N ranks -> M aggregator subfiles exactly as the
 paper's BIT1 checkpoints (.dmp) map onto BP4. A tensor leaf with
-`device_compress` is handed to the engine whole, at rank 0, and
-byte-shuffled on its device before the host LZ stage. `parallel_io=W`
-writes through W writer processes (`repro_torch.core.parallel_engine`).
+`device_compress` is split the same way, its chunks views of its rows,
+and each chunk is byte-shuffled on its device before the host LZ stage.
+`parallel_io=W` writes through W writer processes
+(`repro_torch.core.parallel_engine`).
 
 Model trees keep their layers in lists (`layers`, `units`, `first`,
 `self_units`, `cross`: `models.convert.STACKED`), where the JAX package
@@ -190,8 +191,9 @@ def unflatten_like(like, flat: dict):
     return build((), like)
 
 
-def _leaf_chunks(arr: np.ndarray, n_ranks: int):
-    """(rank, offset, chunk) row-split of a host array (scalars -> [1])."""
+def _leaf_chunks(arr, n_ranks: int):
+    """(rank, offset, chunk) row-split of a host array or a tensor
+    (scalars -> [1]); a tensor's chunks are views of its rows."""
     if arr.ndim == 0:
         yield 0, (0,), arr.reshape(1)
         return
@@ -228,13 +230,14 @@ def save_checkpoint(directory, state, step: int, *, n_io_ranks: int = 8,
     own transport; `transport` applies to the spawn-per-save path).
 
     `device_compress=True` (with the blosc codec) hands every tensor leaf
-    of rank >= 1 to the engine as it is: it is byte-shuffled on its device
-    (the bitshuffle kernel for a CUDA tensor), one launch a leaf for all
+    of rank >= 1 to the engine as tensors, row-split by rank as a host
+    leaf is, so its chunks spread over the aggregators (or writers) and
+    are encoded in parallel. Each chunk is byte-shuffled on its device
+    (the bitshuffle kernel for a CUDA tensor), one launch a chunk for all
     its 1 MiB codec blocks, and only the LZ stage runs on the host. 0-d
     leaves, Python scalars and bfloat16 (raw uint16 storage) keep the host
-    path. With `parallel_io` the coordinator shuffles such a leaf and the
+    path. With `parallel_io` the coordinator shuffles such a chunk and the
     workers receive pre-shuffled host bytes: they pay only the LZ stage.
-    Such a leaf is one chunk at rank 0, so it lands on writer 0.
 
     DTensor leaves on a mesh of more than one device make the save
     collective: every rank calls it. With `parallel_io=W` (or a
@@ -327,18 +330,16 @@ def _device_leaf(leaf, use_dev: bool) -> bool:
 
 
 def _chunks(leaf, use_dev: bool, n_ranks: int):
-    """(global_shape, offset, rank, chunk) of a leaf off any mesh. A device
-    leaf stays a tensor, one chunk at rank 0: the engine preconditions it
-    on its device. A host leaf is row-split by rank."""
+    """(global_shape, offset, rank, chunk) of a leaf off any mesh, row-split
+    by rank. A device leaf stays a tensor, its chunks views of its rows:
+    the engine preconditions each chunk on its device."""
     if isinstance(leaf, Stacked):
         yield from _stacked_chunks(leaf, use_dev, n_ranks)
         return
-    if _device_leaf(leaf, use_dev):
-        yield tuple(leaf.shape), (0,) * leaf.ndim, 0, leaf
-        return
-    host = _host_leaf(leaf)
-    gshape = host.shape if host.ndim else (1,)
-    for r, off, chunk in _leaf_chunks(host, n_ranks):
+    if not _device_leaf(leaf, use_dev):
+        leaf = _host_leaf(leaf)
+    gshape = tuple(leaf.shape) if leaf.ndim else (1,)
+    for r, off, chunk in _leaf_chunks(leaf, n_ranks):
         yield gshape, off, r, chunk
 
 
@@ -447,8 +448,8 @@ def _save_sharded(directory, final, tmp, flat, step, cfg, use_dev,
     """The collective save of a state with sharded DTensor leaves: every
     rank makes the chunks of its own shards (byte-shuffled on its device
     with `device_compress`), rank 0 gathers them leaf by leaf, in rank
-    order, and writes the series. Leaves off any mesh are rank 0's, as a
-    single-device save writes them."""
+    order, and writes the series. Leaves off any mesh are rank 0's to
+    write, row-split by I/O rank as a single-device save writes them."""
     import torch.distributed as dist
     from repro_torch.core.darshan import CTR, MONITOR
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -536,7 +537,10 @@ def _save_by_rank(directory, final, tmp, flat, step, cfg, use_dev,
     exchange that carries each rank's error, so the ranks raise
     together. The files are the JAX package's
     `save_checkpoint(parallel_io=W, n_io_ranks=world)` of the same
-    sharded state, byte for byte (`md.idx` aside from its time field)."""
+    sharded state, byte for byte (`md.idx` aside from its time field),
+    except for a tensor leaf off any mesh saved with `device_compress`:
+    here it is row-split by rank, each rank shuffling and encoding its own
+    rows, where the JAX package writes it whole at rank 0."""
     import torch.distributed as dist
     from repro_torch.core.aggregation import aggregator_of
     from repro_torch.core.bp_engine import (ChunkMeta, build_md_record,

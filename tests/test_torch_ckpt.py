@@ -20,6 +20,7 @@ from repro.pic import simulation as jsim
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.core import EngineConfig
+from repro_torch.core.bp_engine import BpReader
 from repro_torch.core.darshan import CTR, MONITOR
 from repro_torch.examples import pic_simulation
 from repro_torch.pic import simulation as sim
@@ -76,15 +77,29 @@ def test_jax_checkpoint_restores_in_port(tmpdir_path):
     assert isinstance(back["electrons"].charge, float)
 
 
-@pytest.mark.parametrize("device_compress,async_io",
-                         [(False, False), (True, False), (True, True)])
+#: a codec block smaller than a row chunk of the test state's particle
+#: leaves at 4 I/O ranks (1 KiB and 3 KiB), so each chunk holds several
+SPLIT_BLOCK = 512
+
+
+@pytest.mark.parametrize("device_compress,async_io,block", [
+    pytest.param(False, False, None, id="False-False"),
+    pytest.param(True, False, None, id="True-False"),
+    pytest.param(True, True, None, id="True-True"),
+    pytest.param(True, False, SPLIT_BLOCK, id="True-False-split"),
+    pytest.param(True, True, SPLIT_BLOCK, id="True-True-split")])
 def test_port_checkpoint_restores_in_jax(tmpdir_path, device_compress,
-                                         async_io):
+                                         async_io, block):
     jstate, flat = _jax_state()
     tstate = sim.pic_run_chunk(state_from_numpy(flat, "cpu"), CFG, 2)
+    engine = EngineConfig(codec="blosc", **(
+        {"compression_block": block} if block else {}))
     ckpt.save_checkpoint(tmpdir_path, tstate._asdict(), 2, n_io_ranks=4,
-                         engine_config=EngineConfig(codec="blosc"),
+                         engine_config=engine,
                          device_compress=device_compress, async_io=async_io)
+    with BpReader(ckpt.checkpoint_path(tmpdir_path, 2)) as r:
+        assert len(list(r.iter_chunks(2, "state/electrons/.x"))) == 4
+        assert len(list(r.iter_chunks(2, "state/key"))) == 2
     if device_compress:     # x, w, alive (4C) and v (12C) a species + key
         expect = 3 * 24 * CFG.capacity + 8
         assert MONITOR.report()["total"][CTR.COMPRESS_DEVICE_BYTES] == expect
@@ -101,6 +116,119 @@ def test_port_checkpoint_restores_in_jax(tmpdir_path, device_compress,
     tback, _ = ckpt.restore_checkpoint(tmpdir_path, tstate._asdict())
     for k, v in state_to_numpy(sim.PicState(**tback)).items():
         np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
+def test_device_leaf_is_row_split_as_a_host_leaf():
+    """A device leaf is row-split by rank with the host path's bounds,
+    however small, its chunks views of its rows: a leaf of many rows, one
+    of fewer rows than ranks (the key) and one of rank 2."""
+    leaves = [torch.arange(511, dtype=torch.float32),
+              torch.tensor([7, 9], dtype=torch.int32),
+              torch.arange(30, dtype=torch.float32).reshape(10, 3)]
+    for leaf in leaves:
+        got = list(ckpt._chunks(leaf, True, 4))
+        want = list(ckpt._chunks(leaf, False, 4))
+        assert [c[:3] for c in got] == [c[:3] for c in want]
+        assert len(got) == min(4, leaf.shape[0])
+        for (_, _, _, c), (_, _, _, h) in zip(got, want):
+            assert isinstance(c, torch.Tensor)
+            assert c.untyped_storage().data_ptr() == \
+                leaf.untyped_storage().data_ptr()
+            np.testing.assert_array_equal(c.numpy(), h)
+    assert [c[:3] for c in ckpt._chunks(leaves[0], True, 4)] == \
+        [((511,), (lo,), r) for r, lo in enumerate((0, 127, 255, 383))]
+
+
+def _chunk_table(path, step: int) -> dict:
+    """Each variable's chunks as ((rank, offset, extent, aggregator),
+    (min, max), payload bytes), in table order."""
+    out = {}
+    with BpReader(path) as r:
+        for name in r.var_names(step):
+            out[name] = []
+            for c in r.iter_chunks(step, name):
+                with open(path / f"data.{c.agg}", "rb") as f:
+                    f.seek(c.file_offset)
+                    payload = f.read(c.nbytes)
+                out[name].append(((c.rank, c.offset, c.extent, c.agg),
+                                  (c.vmin, c.vmax), payload))
+    return out
+
+
+def test_device_compressed_save_matches_the_host_path(tmpdir_path):
+    """A device-compressed checkpoint has the host path's chunk table
+    (rank, offset, extent, aggregator) and the same min/max (the device
+    reduction ignores NaNs as the host's does; this state has none). Each
+    chunk's payload is the host path's, and the subfiles are the host
+    path's byte for byte, outside the key's two chunks. The key's chunks
+    (one uint32 each) do not compress and are stored raw, and a raw block
+    that the device shuffled keeps FLAG_PRESHUFFLED (the codec's rule, so
+    its decode knows the layout); the host path's raw block has no flag.
+    The blocks here (2 KiB, a chunk of x 4 KiB) are large enough that every
+    particle block compresses."""
+    from repro_torch.core import compression as C
+    cfg = jsim.PicConfig(n_cells=64, capacity=4096, n_electrons=2048,
+                         n_ions=2048, n_neutrals=2048, rate_R=0.5, dt=1e-2)
+    state = sim.pic_run_chunk(sim.init_sim(cfg, 3, device="cpu"), cfg,
+                              2)._asdict()
+    engine = EngineConfig(codec="blosc", aggregators=2,
+                          compression_block=2048)
+    paths = {}
+    for dev in (True, False):
+        paths[dev] = ckpt.save_checkpoint(
+            tmpdir_path / str(dev), state, 2, n_io_ranks=4,
+            engine_config=engine, device_compress=dev)
+    dev, host = (_chunk_table(paths[d], 2) for d in (True, False))
+    assert sorted(dev) == sorted(host)
+    for name in dev:
+        assert [c[:2] for c in dev[name]] == [c[:2] for c in host[name]], \
+            name
+        if name != "state/key":
+            assert [c[2] for c in dev[name]] == [c[2] for c in host[name]], \
+                name
+    assert sum(len(dev[n]) == 4 for n in dev) == 12   # x, v, w, alive x 3
+    assert [c[0] for c in dev["state/key"]] == [(0, (0,), (1,), 0),
+                                                (1, (1,), (1,), 0)]
+    for (*_, d), (*_, h) in zip(dev["state/key"], host["state/key"]):
+        ((_, dc, _, df, _, _),) = C.iter_block_headers(d)
+        ((_, hc, _, hf, _, _),) = C.iter_block_headers(h)
+        assert C.CODEC_NAMES[dc] == C.CODEC_NAMES[hc] == "none"
+        assert df & C.FLAG_PRESHUFFLED and not hf & C.FLAG_PRESHUFFLED
+        assert C.decompress(d) == C.decompress(h)
+    for agg in range(2):
+        kept = []
+        for d in (True, False):
+            with BpReader(paths[d]) as r:
+                skip = sorted((c.file_offset, c.nbytes)
+                              for c in r.iter_chunks(2, "state/key")
+                              if c.agg == agg)
+            data = (paths[d] / f"data.{agg}").read_bytes()
+            for off, n in reversed(skip):
+                data = data[:off] + data[off + n:]
+            kept.append(data)
+        assert kept[0] == kept[1], f"data.{agg}"
+
+
+def test_split_save_books_device_bytes_on_every_subfile(tmpdir_path):
+    """The split engages: each of the four aggregators' subfiles books a
+    quarter of the particle leaves' device-shuffled bytes (data.0 and
+    data.1 a row of the key besides), and they sum to 72 B a slot + 8."""
+    state = _pic_state()
+    ckpt.save_checkpoint(
+        tmpdir_path, state, 1, n_io_ranks=4,
+        engine_config=EngineConfig(codec="blosc", aggregators=4, workers=4),
+        device_compress=True)
+    rep = MONITOR.report()
+    booked = {int(p.rsplit(".", 1)[1]): c.get(CTR.COMPRESS_DEVICE_BYTES, 0)
+              for p, c in rep["files"].items()
+              if p.rsplit("/", 1)[-1].startswith("data.")}
+    quarter = 3 * 24 * CFG.capacity // 4
+    assert booked == {0: quarter + 4, 1: quarter + 4, 2: quarter,
+                      3: quarter}
+    assert rep["total"][CTR.COMPRESS_DEVICE_BYTES] == \
+        3 * 24 * CFG.capacity + 8
+    back, _ = ckpt.restore_checkpoint(tmpdir_path, state)
+    _assert_same_state(back, state)
 
 
 def test_restart_from_checkpoint_is_deterministic(tmpdir_path):

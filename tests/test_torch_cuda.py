@@ -729,12 +729,69 @@ def test_parallel_device_checkpoint_payloads_equal_the_serial_engines(
                 assert back[k].device == v.device and torch.equal(back[k], v)
     nbytes = sum(state[k].numel() * state[k].element_size()
                  for k in ("x", "v", "alive", "key"))
-    assert shuffled["serial"] == shuffled["parallel"] == (4, nbytes)
+    # one launch a row chunk: x, v, alive in 16, the key (2 rows) in 2
+    assert shuffled["serial"] == shuffled["parallel"] == (3 * 16 + 2, nbytes)
     serial = _chunk_payloads(tmp_path / "serial" / "step_00000004.bp4")
     parallel = _chunk_payloads(tmp_path / "parallel" / "step_00000004.bp4")
     assert serial.keys() == parallel.keys()
     for key, payload in serial.items():
         assert parallel[key] == payload, key
+
+
+def test_split_device_checkpoint_equals_the_host_path(cuda_device, tmp_path):
+    """CUDA leaves are row-split by rank: the four aggregators' writer
+    threads shuffle their rows on the card at once, one launch a chunk.
+    The chunk table (rank, offset, extent, aggregator, min/max) equals the
+    host path's, and so does every chunk's payload but the key's (one
+    uint32 a chunk, stored raw, keeps FLAG_PRESHUFFLED on the device
+    path); each subfile books its share of the shuffled bytes, and the
+    checkpoint restores bit for bit."""
+    from repro_torch.ckpt.checkpoint import (restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.core.bp_engine import BpReader, EngineConfig
+    from repro_torch.core.darshan import CTR, MONITOR
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(30)
+    n = 1 << 20
+    state = {"x": torch.rand(n, generator=g, device=cuda_device),
+             "v": torch.randn((n, 3), generator=g, device=cuda_device),
+             "alive": (torch.rand(n, generator=g, device=cuda_device)
+                       > 0.3).float(),
+             "key": torch.tensor([7, 9], dtype=torch.uint32,
+                                 device=cuda_device)}
+    cfg = EngineConfig(aggregators=4, workers=4, codec="blosc")
+    tables, booked = {}, {}
+    for dev in (True, False):
+        MONITOR.reset()
+        before = bops.shuffle_blocks.launches
+        path = save_checkpoint(tmp_path / str(dev), state, 2, n_io_ranks=4,
+                               engine_config=cfg, device_compress=dev)
+        if dev:
+            assert bops.shuffle_blocks.launches - before == 3 * 4 + 2
+            booked = {f.rsplit("/", 1)[-1]: c.get(CTR.COMPRESS_DEVICE_BYTES)
+                      for f, c in MONITOR.report()["files"].items()
+                      if "/data." in f}
+        with BpReader(path) as r:
+            tables[dev] = {
+                name: sorted(((c.rank, c.offset, c.extent, c.agg),
+                              (c.vmin, c.vmax),
+                              r._read_payload(c.agg, c.file_offset,
+                                              c.nbytes))
+                             for c in r.iter_chunks(2, name))
+                for name in r.var_names(2)}
+        back, _ = restore_checkpoint(tmp_path / str(dev), state)
+        for k, v in state.items():
+            assert back[k].device == v.device and torch.equal(back[k], v)
+    quarter = (4 + 12 + 4) * n // 4
+    assert booked == {"data.0": quarter + 4, "data.1": quarter + 4,
+                      "data.2": quarter, "data.3": quarter}
+    assert [c[0] for c in tables[True]["state/key"]] == [
+        (0, (0,), (1,), 0), (1, (1,), (1,), 1)]
+    assert [c[:2] for c in tables[True]["state/key"]] == \
+        [c[:2] for c in tables[False]["state/key"]]
+    for name in ("state/x", "state/v", "state/alive"):
+        assert len(tables[True][name]) == 4
+        assert tables[True][name] == tables[False][name], name
 
 
 def test_tools_read_a_device_compressed_checkpoint(cuda_device, tmp_path,
@@ -754,8 +811,9 @@ def test_tools_read_a_device_compressed_checkpoint(cuda_device, tmp_path,
     from repro_torch.tools import jbpfsck, jbpls
     g = torch.Generator(device=cuda_device)
     g.manual_seed(21)
-    # noise does not compress: 3 whole 1 MiB blocks and a 20-byte tail,
-    # all shuffled and stored raw; the ramp compresses: 2 blosc blocks
+    # each leaf is 4 row chunks at 4 I/O ranks, each chunk one block: the
+    # noise's (768 KiB and 5 B more) do not compress, so they are shuffled
+    # and stored raw; the ramp's (512 KiB) compress
     state = {"noise": torch.randint(-2 ** 31, 2 ** 31 - 1,
                                     ((3 << 18) + 5,), dtype=torch.int32,
                                     generator=g, device=cuda_device),
@@ -766,20 +824,20 @@ def test_tools_read_a_device_compressed_checkpoint(cuda_device, tmp_path,
                            engine_config=EngineConfig(aggregators=2,
                                                       codec="blosc"),
                            device_compress=True)
-    assert bops.shuffle_blocks.launches == before + 2
+    assert bops.shuffle_blocks.launches == before + 2 * 4
     assert jbpfsck.main([str(path), "--deep"]) == 0
     capsys.readouterr()
     kinds = {}
     with BpReader(path) as r:
         step = r.valid_steps()[-1]
         for name in state:
-            (ch,) = r.iter_chunks(step, f"state/{name}")
             kinds[name] = [
                 (C.CODEC_NAMES[cid], bool(flags & C.FLAG_PRESHUFFLED))
+                for ch in r.iter_chunks(step, f"state/{name}")
                 for _o, cid, _i, flags, _r, _c in C.iter_block_headers(
                     r._read_payload(ch.agg, ch.file_offset, ch.nbytes))]
     assert kinds == {"noise": [("none", True)] * 4,
-                     "ramp": [("blosc", False)] * 2}
+                     "ramp": [("blosc", False)] * 4}
     MONITOR.reset()
     assert jbpls.main([str(path), "-l", "-L", "--json"]) == 0
     listed = json.loads(capsys.readouterr().out)["variables"]

@@ -36,9 +36,10 @@ from repro_torch.train.step import make_train_step
 CFG = sim.PicConfig(n_cells=64, capacity=1024, n_electrons=512, n_ions=512,
                     n_neutrals=512, rate_R=0.5, dt=1e-2)
 ENGINE = EngineConfig(aggregators=2, codec="blosc", workers=2)
-#: the state's tensor leaves of rank >= 1, which a device-compressed save
-#: keeps as tensors: x, v, w, alive of three species, and the key
-DEVICE_LEAVES = 13
+#: the chunks a device-compressed save at 4 I/O ranks shuffles on the
+#: device, one a row chunk of each tensor leaf of rank >= 1: x, v, w and
+#: alive of three species in 4, and the key (2 rows) in 2
+DEVICE_CHUNKS = 12 * 4 + 2
 RANGE = re.compile(r"^[a-z][a-z0-9_]*\.[a-z][a-z0-9_]*$")
 
 
@@ -132,7 +133,7 @@ def test_save_ranges_nest_as_the_save_runs(tmpdir_path, device_compress):
     assert publish[1] >= max(f[2] for f in fsyncs)
     shuffles = _named(r, "bp.device_shuffle")
     if device_compress:
-        assert len(shuffles) == DEVICE_LEAVES
+        assert len(shuffles) == DEVICE_CHUNKS
         assert _each_inside_one(r, "bp.device_shuffle", "bp.compress")
         # no encode inside a shuffle: the stage is the shuffle alone
         assert not any(_inside(e, s) for e in _named(r, "bp.encode")
@@ -180,7 +181,7 @@ def test_spans_register_their_ops_and_feed_the_ring_and_metrics(tmpdir_path):
     assert "fsync" in ops and "fsync" not in SPAN_OPS    # a POSIX op
     cells = {k: c["count"] for k, c in METRICS.merged().items()}
     assert cells["compress|data.0"] == 1
-    assert cells["device_shuffle|"] == DEVICE_LEAVES
+    assert cells["device_shuffle|"] == DEVICE_CHUNKS
     assert sum(v for k, v in cells.items() if k.startswith("seal|")) == 1
     assert not any(k.startswith(("encode|", "append|", "deposit|"))
                    for k in cells)
