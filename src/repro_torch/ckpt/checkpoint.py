@@ -405,17 +405,14 @@ def _local_box(x) -> tuple:
     return tuple(i * (s // k) for i, s, k in zip(idx, shape, n))
 
 
-def _shard_chunk(local: torch.Tensor, use_dev: bool, block: int, shape):
-    """One rank's shard as the chunk to write, reshaped to `shape`:
-    byte-shuffled on its device into a `PreshuffledChunk`, or on the
-    host."""
+def _shard_chunk(local: torch.Tensor, use_dev: bool, shape):
+    """One rank's shard reshaped to `shape`: a tensor for the device
+    shuffle of `C.outbound_chunk`, or on the host."""
     local = local.reshape(shape)
-    if _device_leaf(local, use_dev):
-        return C.device_precondition(local, block=block)
-    return _host_leaf(local)
+    return local if _device_leaf(local, use_dev) else _host_leaf(local)
 
 
-def _rank_chunks(leaf, use_dev: bool, block: int, rank: int) -> list:
+def _rank_chunks(leaf, use_dev: bool, rank: int) -> list:
     """(global_shape, offset, rank, chunk) of this rank's shards of a
     sharded leaf. A 0-d leaf is written as its 0-d self at offset (), as
     the JAX package writes a replicated scalar; a group of layers is the
@@ -427,14 +424,14 @@ def _rank_chunks(leaf, use_dev: bool, block: int, rank: int) -> list:
         if leaf.ndim == 0:
             return [((), (), rank, _host_leaf(local).reshape(()))]
         return [(tuple(leaf.shape), _local_box(leaf), rank,
-                 _shard_chunk(local, use_dev, block, local.shape))]
+                 _shard_chunk(local, use_dev, local.shape))]
     gshape = leaf.shape
     zeros = (0,) * len(leaf.lead)
     box = _local_box(leaf.parts[0])
     if all(_device_leaf(p.to_local(), use_dev) for p in leaf.parts):
         ones = (1,) * len(leaf.lead)
         return [(gshape, leaf.offset(i)[:len(leaf.lead)] + _local_box(p),
-                 rank, _shard_chunk(p.to_local(), use_dev, block,
+                 rank, _shard_chunk(p.to_local(), use_dev,
                                     ones + tuple(p.to_local().shape)))
                 for i, p in enumerate(leaf.parts)]
     local = [_host_leaf(p.to_local()) for p in leaf.parts]
@@ -466,8 +463,10 @@ def _save_sharded(directory, final, tmp, flat, step, cfg, use_dev,
             _begin(w, step, len(flat), extra_attrs)
         for name, leaf in flat.items():
             if _sharded(leaf):
-                mine = _rank_chunks(leaf, use_dev, cfg.compression_block,
-                                    rank)
+                # shuffled here, booked below by rank 0 (its monitor
+                # writes the series)
+                mine = [(g, o, r, C.outbound_chunk(c, cfg, None))
+                        for g, o, r, c in _rank_chunks(leaf, use_dev, rank)]
             elif rank == 0:
                 mine = list(_chunks(_on_one_device(leaf), use_dev,
                                     n_io_ranks))
@@ -589,13 +588,12 @@ def _save_by_rank(directory, final, tmp, flat, step, cfg, use_dev,
         for i, name in enumerate(names):
             leaf = flat[name]
             if _sharded(leaf):
-                chunks = _rank_chunks(leaf, use_dev, cfg.compression_block,
-                                      rank)
+                chunks = _rank_chunks(leaf, use_dev, rank)
             else:
                 chunks = [c for c in _chunks(_on_one_device(leaf), use_dev,
                                              n_io_ranks) if c[2] == rank]
             for gshape, off, r, chunk in chunks:
-                chunk = _writable(chunk, cfg, tmp)
+                chunk = C.outbound_chunk(chunk, cfg, tmp)
                 raw = chunk.nbytes
                 payload, shape, stats, _ = encode_chunk(
                     chunk, cfg.codec, cfg.compression_block)
@@ -700,23 +698,6 @@ def _save_by_rank(directory, final, tmp, flat, step, cfg, use_dev,
                       encode_s=t_encode, write_s=t_write,
                       seconds=time.perf_counter() - t0)
     return final
-
-
-def _writable(chunk, cfg, path):
-    """A chunk in the form a writer process takes it: a tensor of a leaf
-    off any mesh byte-shuffled on its device (`device_compress`) or
-    copied to host, as the plane's coordinator hands it over."""
-    from repro_torch.core.darshan import CTR, MONITOR
-    if isinstance(chunk, C.PreshuffledChunk):
-        MONITOR.record(0, str(path), CTR.COMPRESS_DEVICE_BYTES,
-                       inc=float(chunk.device_bytes))
-        return chunk
-    if not C.is_device_array(chunk):
-        return np.ascontiguousarray(chunk)
-    if cfg.device_compress and C.codec_wants_device(cfg.codec):
-        return _writable(C.device_precondition(
-            chunk, block=cfg.compression_block), cfg, path)
-    return chunk.cpu().numpy()
 
 
 def list_checkpoints(directory) -> list[int]:

@@ -229,6 +229,43 @@ def seal_md_record(md, idx, md_off: int, step: int, blob: bytes,
     return md_off + len(blob)
 
 
+def put_chunk(writer, name: str, array, *, global_shape: tuple,
+              offset: tuple, rank: int, codec: Optional[str] = None):
+    """Register one rank's chunk of variable `name` for the writer's open
+    step — the ONE `put` of every engine (`BpWriter`, `AsyncBpWriter` and
+    `ParallelBpWriter` bind it), as their snapshots share
+    `take_step_snapshot`.
+
+    `array` may be a numpy ndarray, a torch tensor (left on its device
+    until the step is written — the device-compress path shuffles it
+    there), or a `PreshuffledChunk` from an upstream preconditioner.
+    `codec` overrides the engine codec for THIS variable (e.g.
+    "lossy:1e-3" for particle data while fields stay lossless)."""
+    if writer._step is None:
+        raise RuntimeError("put() outside begin/end_step")
+    validate_put_rank(rank, writer.n_ranks)
+    if isinstance(array, C.PreshuffledChunk) or C.is_device_array(array):
+        a = array                      # no host materialization here
+    else:
+        a = np.ascontiguousarray(array)
+    gshape = tuple(int(x) for x in global_shape)
+    var = writer._pending.setdefault(name, {
+        "dtype": C.np_dtype(a.dtype).str, "shape": gshape, "chunks": []})
+    if var["shape"] != gshape:
+        raise ValueError(
+            f"put({name!r}) global_shape {gshape} conflicts with "
+            f"{var['shape']} from an earlier put of this step")
+    if codec is not None:
+        C.parse_codec(codec)           # fail fast on bad specs
+        prev = var.get("codec")
+        if prev is not None and prev != codec:
+            raise ValueError(
+                f"put({name!r}) codec {codec!r} conflicts with {prev!r} "
+                f"from an earlier put of this step")
+        var["codec"] = codec
+    var["chunks"].append((rank, tuple(int(x) for x in offset), a))
+
+
 @dataclasses.dataclass
 class StepSnapshot:
     """One step's puts, captured at end_step time — the unit of work handed
@@ -320,38 +357,7 @@ class BpWriter:
         — what the source step recorded, nothing more."""
         self._attrs = dict(attrs)
 
-    def put(self, name: str, array, *, global_shape: tuple,
-            offset: tuple, rank: int, codec: Optional[str] = None):
-        """Register one rank's chunk of variable `name` for this step.
-
-        `array` may be a numpy ndarray, a torch tensor (left on its device
-        until end_step — the device-compress path shuffles it there), or a
-        `PreshuffledChunk` from an upstream preconditioner. `codec`
-        overrides the engine codec for THIS variable (e.g. "lossy:1e-3"
-        for particle data while fields stay lossless)."""
-        if self._step is None:
-            raise RuntimeError("put() outside begin/end_step")
-        validate_put_rank(rank, self.n_ranks)
-        if isinstance(array, C.PreshuffledChunk) or C.is_device_array(array):
-            a = array                      # no host materialization here
-        else:
-            a = np.ascontiguousarray(array)
-        gshape = tuple(int(x) for x in global_shape)
-        var = self._pending.setdefault(name, {
-            "dtype": C.np_dtype(a.dtype).str, "shape": gshape, "chunks": []})
-        if var["shape"] != gshape:
-            raise ValueError(
-                f"put({name!r}) global_shape {gshape} conflicts with "
-                f"{var['shape']} from an earlier put of this step")
-        if codec is not None:
-            C.parse_codec(codec)           # fail fast on bad specs
-            prev = var.get("codec")
-            if prev is not None and prev != codec:
-                raise ValueError(
-                    f"put({name!r}) codec {codec!r} conflicts with {prev!r} "
-                    f"from an earlier put of this step")
-            var["codec"] = codec
-        var["chunks"].append((rank, tuple(int(x) for x in offset), a))
+    put = put_chunk
 
     def _take_snapshot(self, *, copy: bool) -> StepSnapshot:
         """Capture the open step and reset producer-side state. With

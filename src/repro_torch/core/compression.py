@@ -6,8 +6,10 @@
                are contiguous — floats compress far better. The numpy path
                below is the host path and the kernel's oracle; tensors
                take the device path (kernels/bitshuffle, a CUDA kernel on
-               the GPU) via `device_array_payload` / `device_precondition`,
-               so the host only pays the cheap Z_RLE stage.
+               the GPU) via `device_array_payload` / `outbound_chunk`,
+               so the host only pays the cheap Z_RLE stage. The module
+               imports no torch: the device functions import it where
+               they run.
   * "lossy"  — error-bounded lossy codec for particle data: uniform scalar
                quantization to a caller-chosen bound, then shuffle + Z_RLE
                on the quantized ints. Spec strings carry the bound:
@@ -36,13 +38,18 @@ from __future__ import annotations
 import bz2
 import math
 import struct
+import sys
 import time
 import zlib
+from typing import TYPE_CHECKING
 
 import numpy as np
-import torch
 
+from repro_torch.core.darshan import CTR, MONITOR
 from repro_torch.core.dxt import TRACER
+
+if TYPE_CHECKING:
+    import torch
 
 MAGIC = b"JBPC"
 HEADER = struct.Struct("<4sBBHII")  # magic, codec_id, itemsize, flags, raw, comp
@@ -389,32 +396,38 @@ def payload_to_array(buf: bytes, dtype, shape) -> np.ndarray:
 # Device path: on-device byte-shuffle preconditioning (kernels/bitshuffle)
 # --------------------------------------------------------------------------
 
-_NP_BY_TORCH = {
-    torch.bool: np.bool_, torch.uint8: np.uint8, torch.int8: np.int8,
-    torch.int16: np.int16, torch.uint16: np.uint16, torch.int32: np.int32,
-    torch.uint32: np.uint32, torch.int64: np.int64, torch.uint64: np.uint64,
-    torch.float16: np.float16, torch.float32: np.float32,
-    torch.float64: np.float64,
-}
+# The host plane never imports torch: a tensor or a torch dtype can only
+# exist once torch is in sys.modules, so the checks below look there.
+_NP_BY_TORCH: dict = {}
 
 
 def np_dtype(dtype) -> np.dtype:
     """numpy dtype of a numpy or torch dtype — the one torch->numpy map the
     engine uses, so a tensor's variable records the same dtype string as
     the ndarray it would become on host."""
-    if isinstance(dtype, torch.dtype):
-        if dtype not in _NP_BY_TORCH:
-            raise TypeError(f"no numpy dtype for {dtype} (store bfloat16 as "
-                            f"a uint16 view)")
-        return np.dtype(_NP_BY_TORCH[dtype])
-    return np.dtype(dtype)
+    torch = sys.modules.get("torch")
+    if torch is None or not isinstance(dtype, torch.dtype):
+        return np.dtype(dtype)
+    if not _NP_BY_TORCH:
+        _NP_BY_TORCH.update({
+            torch.bool: np.bool_, torch.uint8: np.uint8,
+            torch.int8: np.int8, torch.int16: np.int16,
+            torch.uint16: np.uint16, torch.int32: np.int32,
+            torch.uint32: np.uint32, torch.int64: np.int64,
+            torch.uint64: np.uint64, torch.float16: np.float16,
+            torch.float32: np.float32, torch.float64: np.float64})
+    if dtype not in _NP_BY_TORCH:
+        raise TypeError(f"no numpy dtype for {dtype} (store bfloat16 as "
+                        f"a uint16 view)")
+    return np.dtype(_NP_BY_TORCH[dtype])
 
 
 def is_device_array(x) -> bool:
     """True for a torch tensor: it stays a tensor until the encode, where
     a CUDA tensor is shuffled by the kernel and a CPU tensor by the plain
     version of the same transpose."""
-    return isinstance(x, torch.Tensor)
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(x, torch.Tensor)
 
 
 def codec_wants_device(codec) -> bool:
@@ -477,6 +490,7 @@ class PreshuffledChunk:
 
 def _device_byte_view(t: torch.Tensor) -> torch.Tensor:
     """uint8 [nbytes] view of a tensor's raw bytes, on its device."""
+    import torch
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
@@ -485,6 +499,7 @@ def _device_minmax(t: torch.Tensor):
     0-d tensors, or None for dtypes without an order. Floats reduce
     NaN-tolerantly (nanmin/nanmax: NaNs ignored, +-inf kept), the device
     semantics the engine's `finite_stats` then filters."""
+    import torch
     kind = np_dtype(t.dtype).kind
     if kind not in "fiub" or not t.numel():
         return None
@@ -506,6 +521,8 @@ def _device_shuffled_blocks(t: torch.Tensor, block: int, itemsize: int):
     device_bytes, minmax). The `device_shuffle` span covers this stage
     alone: the waits for the copies and the host LZ are spans of their
     own."""
+    import torch
+
     from repro_torch.kernels.bitshuffle import ops as bops
     byts = _device_byte_view(t)
     nbytes = int(byts.shape[0])
@@ -561,6 +578,31 @@ def device_precondition(t: torch.Tensor, *,
     vmin, vmax = _minmax_floats(minmax)
     return PreshuffledChunk(host, dt, t.shape, block, vmin, vmax,
                             device_bytes=dev_bytes)
+
+
+def outbound_chunk(chunk, cfg, path, codec: str | None = None):
+    """A chunk in the form in which it leaves its process: through the
+    write plane's ring or queue, the gather to rank 0, or a by-rank
+    writer's encode. A tensor is byte-shuffled on its device into a
+    `PreshuffledChunk` when `cfg.device_compress` and the codec (`codec`,
+    else `cfg.codec`) want it, and copied to host otherwise; a
+    `PreshuffledChunk` passes as it is, an array as a contiguous ndarray
+    (at least 1-d, as `put` makes it). The chunk's bytes
+    are a view of a pinned buffer that it keeps alive until the ring copy
+    or the pickle has read it. A shuffle on the device books its bytes as
+    COMPRESS_DEVICE_BYTES at rank 0 of `path`; with `path=None` the
+    process that receives the chunk books them."""
+    if isinstance(chunk, PreshuffledChunk):
+        return chunk
+    if not is_device_array(chunk):
+        return np.ascontiguousarray(chunk)
+    if not (cfg.device_compress and codec_wants_device(codec or cfg.codec)):
+        return chunk.cpu().numpy()
+    chunk = device_precondition(chunk, block=cfg.compression_block)
+    if path is not None:
+        MONITOR.record(0, str(path), CTR.COMPRESS_DEVICE_BYTES,
+                       inc=float(chunk.device_bytes))
+    return chunk
 
 
 def array_payload_preshuffled(chunk: PreshuffledChunk, codec: str) -> bytes:

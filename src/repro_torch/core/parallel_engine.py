@@ -34,12 +34,12 @@ ZERO format changes (shards are a writer-side artifact; `md.0` remains
 the reader-visible merged metadata). The port's own copy of the JAX
 package's plane: the same protocol and the same bytes on disk.
 
-Tensors stay on the COORDINATOR. A tensor chunk is byte-shuffled on its
-device there (`device_compress` with a blosc codec: one `shuffle_blocks`
-launch a chunk, then the D2H copy) or copied to host; either way only
-numpy bytes (an ndarray, a `ShmHeader`, or a pre-shuffled chunk's raw
-bytes) cross to a worker. The workers import torch but never touch
-CUDA, so they hold no device context.
+Tensors stay on the COORDINATOR. `compression.outbound_chunk` gives a
+tensor chunk its form there: byte-shuffled on its device
+(`device_compress` with a blosc codec: one `shuffle_blocks` launch a
+chunk, then the D2H copy) or copied to host; either way only numpy bytes
+(an ndarray, a `ShmHeader`, or a pre-shuffled chunk's raw bytes) cross
+to a worker. The workers import no torch and hold no device context.
 
 Chunk TRANSPORT (`transport=`): the default `"shm"` moves chunk bytes
 through a per-worker `repro_torch.core.shm_transport.ShmRing` — the
@@ -118,11 +118,10 @@ import numpy as np
 from repro_torch.core import compression as C
 from repro_torch.core.aggregation import SubfileSet, aggregator_of
 from repro_torch.core.bp_engine import (ChunkMeta, EngineConfig, StepSnapshot,
-                                  build_md_record, encode_chunk,
+                                  build_md_record, encode_chunk, put_chunk,
                                   record_compress_counters,
-                                  seal_md_record, take_step_snapshot,
-                                  validate_put_rank)
-from repro_torch.core.darshan import CTR, MONITOR, merge_worker_payload, open_file
+                                  seal_md_record, take_step_snapshot)
+from repro_torch.core.darshan import MONITOR, merge_worker_payload, open_file
 from repro_torch.core.dxt import TRACER
 from repro_torch.core.metrics import METRICS, StepJournal, journal_path
 from repro_torch.core.shm_transport import (DEFAULT_RING_BYTES, ShmHeader, ShmRing,
@@ -698,38 +697,7 @@ class ParallelBpWriter:
     def set_attribute(self, name: str, value):
         self._attrs[name] = value
 
-    def put(self, name: str, array, *, global_shape: tuple,
-            offset: tuple, rank: int, codec: Optional[str] = None):
-        """Register one rank's chunk of variable `name` for this step.
-
-        Same contract as BpWriter.put: `array` may be a numpy ndarray, a
-        torch tensor (left on its device until the commit, which shuffles
-        it there when the engine has `device_compress=True` and copies it
-        to host otherwise), or a `PreshuffledChunk`; `codec` overrides the
-        engine codec for THIS variable."""
-        if self._step is None:
-            raise RuntimeError("put() outside begin/end_step")
-        validate_put_rank(rank, self.n_ranks)
-        if isinstance(array, C.PreshuffledChunk) or C.is_device_array(array):
-            a = array                      # no host materialization here
-        else:
-            a = np.ascontiguousarray(array)
-        gshape = tuple(int(x) for x in global_shape)
-        var = self._pending.setdefault(name, {
-            "dtype": C.np_dtype(a.dtype).str, "shape": gshape, "chunks": []})
-        if var["shape"] != gshape:
-            raise ValueError(
-                f"put({name!r}) global_shape {gshape} conflicts with "
-                f"{var['shape']} from an earlier put of this step")
-        if codec is not None:
-            C.parse_codec(codec)           # fail fast on bad specs
-            prev = var.get("codec")
-            if prev is not None and prev != codec:
-                raise ValueError(
-                    f"put({name!r}) codec {codec!r} conflicts with {prev!r} "
-                    f"from an earlier put of this step")
-            var["codec"] = codec
-        var["chunks"].append((rank, tuple(int(x) for x in offset), a))
+    put = put_chunk
 
     def _take_snapshot(self, *, copy: bool) -> StepSnapshot:
         """Capture the open step and reset producer-side state (the shared
@@ -771,23 +739,9 @@ class ParallelBpWriter:
         for name, var in snap.pending.items():
             codec = var.get("codec") or self.cfg.codec
             for rank, offset, arr in var["chunks"]:
-                if C.is_device_array(arr):
-                    if (self.cfg.device_compress
-                            and C.codec_wants_device(codec)):
-                        # on-device byte shuffle BEFORE the shm handoff
-                        # (the bitshuffle kernel for a CUDA tensor): the
-                        # worker sees pre-shuffled host bytes and pays only
-                        # the LZ stage (its encode skips the host shuffle).
-                        # The chunk's bytes are a view of a pinned buffer
-                        # that the chunk keeps alive until the ring copy or
-                        # the queue's pickle has read it.
-                        arr = C.device_precondition(
-                            arr, block=self.cfg.compression_block)
-                        MONITOR.record(0, str(self.path),
-                                       CTR.COMPRESS_DEVICE_BYTES,
-                                       inc=float(arr.device_bytes))
-                    else:
-                        arr = arr.cpu().numpy()   # no tensor crosses
+                # no tensor crosses: a pre-shuffled chunk leaves the worker
+                # only the LZ stage (its encode skips the host shuffle)
+                arr = C.outbound_chunk(arr, self.cfg, self.path, codec)
                 n_bytes_raw += arr.nbytes
                 wid = aggregator_of(rank, self.n_ranks, self.m)
                 by_w.setdefault(wid, []).append((name, rank, offset, arr,

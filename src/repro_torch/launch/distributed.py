@@ -32,8 +32,6 @@ import time
 import traceback
 from typing import Callable, Optional
 
-from repro_torch._device import resolve_device
-
 
 def initialize(coordinator: Optional[str] = None,
                num_processes: Optional[int] = None,
@@ -50,6 +48,7 @@ def initialize(coordinator: Optional[str] = None,
     import torch
     import torch.distributed as dist
 
+    from repro_torch._device import resolve_device
     dev = resolve_device(device)
     if coordinator is None and "MASTER_ADDR" in os.environ:
         coordinator = (f"{os.environ['MASTER_ADDR']}:"

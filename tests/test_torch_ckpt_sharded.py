@@ -120,19 +120,19 @@ def _rank_save_small_failing(directory, step, bad_rank):
     failing to encode its chunks: the error every rank raised."""
     mesh = tmesh.make_mesh((2, 2), AXES, device_type="cpu")
     state = _shard(_small_state(), _named(mesh, SMALL_SPECS))
-    real = ckpt._writable
+    real = ckpt.C.outbound_chunk
 
-    def broken(chunk, cfg, path):
+    def broken(chunk, cfg, path=None, codec=None):
         raise OSError("disk full")
     if dist.get_rank() == bad_rank:
-        ckpt._writable = broken
+        ckpt.C.outbound_chunk = broken
     try:
         ckpt.save_checkpoint(directory, state, step, n_io_ranks=4,
                              parallel_io=4)
     except RuntimeError as e:
         return str(e)
     finally:
-        ckpt._writable = real
+        ckpt.C.outbound_chunk = real
     return "saved"
 
 

@@ -64,6 +64,77 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     assert res["bad"] == []
 
 
+#: the host I/O plane: the codec, the engines, the writer processes, the
+#: service and the tools, none of which touches a tensor
+_HOST_PLANE = (
+    "core.compression", "core.bp_engine", "core.openpmd",
+    "core.async_engine", "core.parallel_engine", "core.sst_engine",
+    "core.original_io", "launch.distributed", "insitu.runner", "serve.jbpd",
+    "tools._runner", "tools.jbpls", "tools.jbpfsck", "tools.jbprepack",
+    "tools.jbpstat", "tools.jbpdxt", "tools.jbpd", "tools.jbplint",
+    "examples.io_tuning")
+
+_ROUND_TRIP = """
+import json, subprocess, sys
+import numpy as np
+from repro_torch.core.bp_engine import BpReader, EngineConfig
+from repro_torch.core.parallel_engine import ParallelBpWriter
+series = sys.argv[1]
+rng = np.random.default_rng(0)
+want = {s: rng.standard_normal((8, 3)).astype(np.float32) for s in (0, 1)}
+w = ParallelBpWriter(series, 4, EngineConfig(codec="blosc"), n_writers=2)
+for s, a in want.items():
+    w.begin_step(s)
+    for r in range(4):
+        w.put("x", a[2 * r:2 * r + 2], global_shape=a.shape,
+              offset=(2 * r, 0), rank=r)
+    w.end_step()
+w.close()
+with BpReader(series) as rd:
+    same = all(rd.read_var(s, "x").tobytes() == a.tobytes()
+               for s, a in want.items())
+    steps = rd.valid_steps()
+ls = subprocess.run([sys.executable, "-m", "repro_torch.tools.jbpls",
+                     "--json", series], capture_output=True, text=True)
+print(json.dumps({"same": same, "steps": steps, "ls_rc": ls.returncode,
+                  "ls": ls.stdout, "ls_err": ls.stderr[-2000:],
+                  "torch": "torch" in sys.modules}))
+"""
+
+
+@pytest.mark.parametrize("case", _HOST_PLANE + ("round trip",))
+def test_host_io_plane_needs_no_torch(case, tmp_path):
+    """Each module of the host plane imports in a fresh interpreter without
+    loading torch. The round trip makes torch unimportable for the writer
+    processes and the tool too: 2 writer processes write numpy chunks, the
+    reader gets them back bit for bit, and `jbpls --json` lists the
+    series."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    if case != "round trip":
+        code = (f"import sys, repro_torch.{case}; "
+                f"print('torch' in sys.modules)")
+        out = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True, timeout=120,
+                             check=True, cwd=REPO)
+        assert out.stdout.strip() == "False"
+        return
+    stub = tmp_path / "stub" / "torch"
+    stub.mkdir(parents=True)
+    (stub / "__init__.py").write_text(
+        "raise ImportError('torch is unimportable here')\n")
+    env["PYTHONPATH"] = os.pathsep.join([str(stub.parent), str(REPO / "src")])
+    out = subprocess.run([sys.executable, "-c", _ROUND_TRIP,
+                          str(tmp_path / "s.bp4")], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=REPO)
+    assert out.returncode == 0, out.stderr[-4000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["ls_rc"] == 0, res["ls_err"]
+    assert res["same"] and res["steps"] == [0, 1]
+    assert not res["torch"]
+    assert json.loads(res["ls"])["steps"] == [0, 1]
+
+
 def test_port_sources_and_chip_smoke_have_no_jax_or_repro_import():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
